@@ -1,6 +1,6 @@
-"""flowsim_tpu — a TPU-native open-channel hydrodynamics framework.
+"""flowsim_tpu — a JAX open-channel hydrodynamics framework for GPUs.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the reference
+A ground-up JAX/XLA re-design of the capabilities of the reference
 ``cve-mohd/flow-sim`` package (1-D Saint-Venant river hydraulics):
 
 * struct-of-arrays geometry pytrees instead of per-node Python objects
@@ -27,19 +27,16 @@ from flowsim_tpu.geometry import (
     interpolate_stations,
 )
 from flowsim_tpu.geometry_tables import IrregularStation, build_table_geometry
-try:  # high-level API (built after the core ops)
-    from flowsim_tpu.api import (
-        Boundary,
-        Channel,
-        Hydrograph,
-        Junction,
-        LumpedStorage,
-        NetworkSolver,
-        RatingCurve,
-        PreissmannSolver,
-        LaxSolver,
-    )
-except ImportError:  # pragma: no cover - during incremental bootstrap
-    pass
+from flowsim_tpu.api import (
+    Boundary,
+    Channel,
+    Hydrograph,
+    Junction,
+    LumpedStorage,
+    NetworkSolver,
+    RatingCurve,
+    PreissmannSolver,
+    LaxSolver,
+)
 
 __version__ = "0.1.0"

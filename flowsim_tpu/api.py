@@ -29,6 +29,7 @@ from flowsim_tpu.ops import preissmann as prs
 from flowsim_tpu.ops import rating_curve as rcurve
 from flowsim_tpu.ops import sections as sec
 from flowsim_tpu.ops import storage as storage_mod
+from flowsim_tpu.ops import tridiag
 
 
 class Hydrograph:
@@ -412,12 +413,16 @@ class _SolverBase:
 
 
 class PreissmannSolver(_SolverBase):
-    """Implicit Preissmann solver (ref: preissmann.py:9-46 surface)."""
+    """Implicit Preissmann solver (ref: preissmann.py:9-46 surface).
+
+    ``linear_solver`` is ``"thomas"``, ``"pcr"`` or ``"pcr_f32"``; ``None``
+    takes the backend's default (:func:`flowsim_tpu.ops.tridiag.
+    default_linear_solver`)."""
 
     _type = "preissmann"
 
     def __init__(self, channel, theta, time_step, spatial_step, simulation_time,
-                 fit_spatial_step=True, linear_solver="pcr", newton="while",
+                 fit_spatial_step=True, linear_solver=None, newton="while",
                  regularization=False):
         if regularization:
             raise NotImplementedError(
@@ -445,17 +450,16 @@ class PreissmannSolver(_SolverBase):
             n_time_levels=self.number_of_time_levels,
             tolerance=float(tolerance),
             max_iter=int(max_iter),
-            linear_solver=self.linear_solver,
+            linear_solver=self.linear_solver or tridiag.default_linear_solver(),
             newton=self.newton,
             diagnos=bool(diagnos),
         )
-        prs.guard_tpu_thomas(sset)  # 'thomas' crashes the TPU runtime worker
         return sset
 
     RCOND_THRESHOLD = 1e-12  # ref preissmann.py:142
 
     def run(self, tolerance=1e-4, verbose=1, max_iter=100, diagnos=False, live=False,
-            engine="xla", lateral_inflow=None):
+            lateral_inflow=None):
         """Run the full simulation.
 
         ``live=True`` streams the per-level progress lines from *inside* the
@@ -463,16 +467,9 @@ class PreissmannSolver(_SolverBase):
         host callback; the default reports post-hoc, which is faster on
         accelerators (no per-level host sync).
 
-        ``engine``: ``"xla"`` (default) runs the scan-of-Newton XLA program;
-        ``"fused"`` runs the whole simulation as one Pallas kernel
-        (ops/pallas/fused_newton.py — df32 residual path, the fast path for
-        flagship-sized trapezoid and table-geometry configs on TPU),
-        falling back to XLA when
-        the configuration is outside the kernel's scope.
-
         ``lateral_inflow``: distributed source q [m^2/s per unit length] —
         scalar (uniform), per-node [N], or per-level-and-node [nt, N]
-        (a flowsim_tpu extension; XLA engine only).
+        (a flowsim_tpu extension).
         """
         sset = self.settings(tolerance, max_iter, diagnos=diagnos)
         if live:
@@ -484,32 +481,12 @@ class PreissmannSolver(_SolverBase):
             if lateral_inflow.ndim == 0:
                 lateral_inflow = np.full(self.number_of_nodes,
                                          float(lateral_inflow))
-        out = None
-        if engine == "fused" and (diagnos or live):
-            if verbose >= 1:
-                which = "diagnos" if diagnos else "live progress"
-                print(f"fused engine does not support {which}; using XLA path")
-        elif engine == "fused":
-            from flowsim_tpu.ops.pallas.fused_newton import (FusedUnsupported,
-                                                             fused_simulate)
-
-            try:
-                out = fused_simulate(
-                    self.channel.geometry, self.us_params, self.ds_params,
-                    self.h0, self.Q0, sset,
-                    interpret=jax.devices()[0].platform != "tpu",
-                    lateral_inflow=lateral_inflow,
-                )
-            except FusedUnsupported as e:
-                if verbose >= 2:
-                    print(f"fused engine unavailable ({e}); using XLA path")
-        if out is None:
-            out = prs.simulate(
-                self.channel.geometry, self.us_params, self.ds_params,
-                self.h0, self.Q0, sset,
-                lateral_inflow=None if lateral_inflow is None
-                else jnp.asarray(lateral_inflow, self.h0.dtype),
-            )
+        out = prs.simulate(
+            self.channel.geometry, self.us_params, self.ds_params,
+            self.h0, self.Q0, sset,
+            lateral_inflow=None if lateral_inflow is None
+            else jnp.asarray(lateral_inflow, self.h0.dtype),
+        )
         out = jax.tree_util.tree_map(np.asarray, out)
         self.output = out
         self.depth = out.depth
@@ -657,7 +634,7 @@ class NetworkSolver:
 
     def __init__(self, channels, theta, time_step, spatial_step, simulation_time,
                  junction_area=None, junction_rating=None,
-                 fit_spatial_step=True, linear_solver="pcr", newton="while",
+                 fit_spatial_step=True, linear_solver=None, newton="while",
                  initial_conditions=None):
         from flowsim_tpu.ops import network as net
 
@@ -726,42 +703,24 @@ class NetworkSolver:
             n_time_levels=self.number_of_time_levels,
             tolerance=float(tolerance),
             max_iter=int(max_iter),
-            linear_solver=self.linear_solver,
+            linear_solver=self.linear_solver or tridiag.default_linear_solver(),
             newton=self.newton,
             **kw,
         )
-        prs.guard_tpu_thomas(sset)  # 'thomas' crashes the TPU runtime worker
         return sset
 
     def run(self, tolerance=1e-4, verbose=1, max_iter=100, engine="loop"):
         """``engine="stacked"`` batches all branches into one padded
-        assembly + solve per Newton iteration (the fast XLA path for
-        many-branch networks); ``engine="fused"`` runs the whole simulation
-        as ONE Pallas kernel dispatch (ops/pallas/fused_network.py — the
-        fastest TPU path for supported configurations, falling back to
-        "stacked" otherwise).  See ops/network.py."""
+        assembly + solve per Newton iteration (the fast path for
+        many-branch networks); ``"loop"`` solves each branch as its own
+        subgraph.  See ops/network.py."""
         from flowsim_tpu.ops import network as net
 
         sset = self.settings(tolerance, max_iter)
-        if engine == "fused":
-            from flowsim_tpu.ops.pallas.fused_newton import FusedUnsupported
-
-            try:
-                out = net.simulate_network(
-                    self.branches, self.n_junctions, sset,
-                    junction_area=self.junction_area,
-                    junction_rating=self.junction_rating, engine="fused")
-                engine = None  # handled
-            except FusedUnsupported as e:
-                if verbose >= 1:
-                    print(f"fused engine unavailable ({e}); using the "
-                          "stacked XLA path")
-                engine = "stacked"
-        if engine is not None:
-            out = net.simulate_network(
-                self.branches, self.n_junctions, sset,
-                junction_area=self.junction_area,
-                junction_rating=self.junction_rating, engine=engine)
+        out = net.simulate_network(
+            self.branches, self.n_junctions, sset,
+            junction_area=self.junction_area,
+            junction_rating=self.junction_rating, engine=engine)
         out = jax.tree_util.tree_map(np.asarray, out)
         self.output = out
         if not bool(out.converged.all()):

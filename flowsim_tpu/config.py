@@ -1,13 +1,10 @@
 """Global numeric configuration.
 
-The reference code is float64-NumPy throughout (ref: solver.py:43-44).  On TPU
-the fast path is float32 (MXU/VPU native); float64 is emulated and slow.  The
-framework therefore carries an explicit dtype policy:
-
-* parity / oracle tests run on CPU with ``jax_enable_x64`` and ``float64``
-  so prognostic fields can be compared allclose against the reference;
-* TPU production/bench runs use ``float32`` (Newton tolerances are expressed
-  on the residual norm, which is well-scaled for f32).
+The reference code is float64-NumPy throughout (ref: solver.py:43-44), and
+float64 is native on the CPU and the GPU, so production runs, benchmarks and
+parity tests all enable ``jax_enable_x64`` and carry ``float64`` state.  With
+x64 disabled the solver state falls back to ``float32`` (Newton tolerances
+are expressed on the residual norm, which is well-scaled for f32).
 """
 
 from __future__ import annotations

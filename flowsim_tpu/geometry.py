@@ -3,7 +3,8 @@
 The reference represents geometry as one Python ``CrossSection`` object per
 node with virtual dispatch and per-instance memo caches
 (ref: src/hydromodel/cross_section.py:6-846, channel.py:213-241).  That is the
-antithesis of TPU style: every closure evaluation is a host-side scalar call.
+antithesis of accelerator style: every closure evaluation is a host-side
+scalar call.
 
 Here a channel reach is a **pytree of per-node parameter arrays**.  All
 hydraulic closures (see :mod:`flowsim_tpu.ops.sections`) are vectorized pure

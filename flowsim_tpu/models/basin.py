@@ -22,6 +22,7 @@ from flowsim_tpu.ops import boundary as bnd
 from flowsim_tpu.ops import initial_conditions as ic
 from flowsim_tpu.ops import preissmann as prs
 from flowsim_tpu.ops.network import BranchDef, simulate_network
+from flowsim_tpu.ops.tridiag import default_linear_solver
 
 DX = 500.0
 LINK_NODES = 13          # nodes per reach (6 km links)
@@ -106,18 +107,13 @@ def build(levels=4, sim_hours=24, time_step=900.0, tolerance=1e-6,
 
     settings = prs.PreissmannSettings(
         theta=0.7, time_step=time_step, spatial_step=DX, n_time_levels=nt,
-        tolerance=tolerance, max_iter=100)
+        tolerance=tolerance, max_iter=100,
+        linear_solver=default_linear_solver())
     return branches, n_internal, settings
 
 
 def main(levels=4, engine="stacked"):
-    import jax
-
     branches, nj, sset = build(levels)
-    if jax.default_backend() != "cpu":
-        import dataclasses
-
-        sset = dataclasses.replace(sset, linear_solver="pcr_f32")
     out = simulate_network(branches, nj, sset, engine=engine)
     q_out = np.asarray(out.flow[0])[:, -1]
     n_leaves = 2 ** (levels - 1)

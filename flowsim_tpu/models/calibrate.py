@@ -74,38 +74,15 @@ def rmse_objective(geo, us_bc, ds_bc, h0, Q0, settings, Q_targets, H_targets, ic
 
 
 def rmse_sweep(geo, us_bc, ds_bc, h0, Q0, settings, Q_targets, H_targets, n_values,
-               sharded: bool = False, engine: str = "xla", ic_fn=None):
+               sharded: bool = False, ic_fn=None):
     """Vectorized replacement for the serial sweep of ref n_calibrate.py:55-75.
 
     All candidates run as one vmapped batch (optionally sharded over the
-    device mesh ensemble axis).  ``engine="fused"`` routes the whole sweep
-    through the batched fused Pallas kernel (members on the VPU sublane
-    axis, one dispatch per VMEM chunk — see parallel/ensemble.py); pass
-    ``ic_fn`` (e.g. :func:`gvf_ic_fn`) to recompute per-candidate initial
-    conditions, as the reference's per-candidate model rebuild does.
+    device mesh ensemble axis); pass ``ic_fn`` (e.g. :func:`gvf_ic_fn`) to
+    recompute per-candidate initial conditions, as the reference's
+    per-candidate model rebuild does.
     """
     n_values = jnp.asarray(n_values)
-    if engine == "fused":
-        if sharded:
-            raise ValueError(
-                "engine='fused' is single-device (members ride VPU "
-                "sublanes); use engine='xla' with sharded=True to spread "
-                "the sweep over the device mesh")
-        from flowsim_tpu.parallel.ensemble import (batched_simulate,
-                                                   roughness_ensemble)
-
-        geob = roughness_ensemble(geo, n_values)
-        if ic_fn is not None:
-            h0, Q0 = jax.vmap(ic_fn)(geob)
-        # the objective reads only the upstream node (column 0 in both the
-        # full and boundaries layouts), so boundaries-only storage is exact
-        # and raises the per-dispatch VMEM member cap ~7x at flagship size
-        settings = dataclasses.replace(settings, store="boundaries")
-        out = batched_simulate(geob, us_bc, ds_bc, h0, Q0, settings,
-                               shard=False, engine="fused")
-        H = jax.vmap(lambda o: upstream_stage_at(o, geo.z_bed[0], Q_targets))(out)
-        return jnp.sqrt(jnp.mean((H - jnp.asarray(H_targets)) ** 2, axis=1))
-
     obj = rmse_objective(geo, us_bc, ds_bc, h0, Q0, settings, Q_targets,
                          H_targets, ic_fn=ic_fn)
     fv = jax.jit(jax.vmap(obj))
@@ -155,7 +132,7 @@ def bfgs_calibrate(geo, us_bc, ds_bc, h0, Q0, settings, Q_targets, H_targets,
 
 def gradient_calibrate(geo, us_bc, ds_bc, h0, Q0, settings, Q_targets, H_targets,
                        n0=0.028, lr=2e-4, steps=25, bounds=(0.020, 0.060),
-                       newton: str = "implicit", engine: str = "xla"):
+                       newton: str = "implicit"):
     """Gradient descent on the squared-stage objective through the solver.
 
     ``newton="implicit"`` (default) uses the adjoint path (ops/adjoint.py):
@@ -163,34 +140,8 @@ def gradient_calibrate(geo, us_bc, ds_bc, h0, Q0, settings, Q_targets, H_targets
     level backward — O(1) gradient memory.  ``newton="fixed"`` keeps the
     legacy unrolled-autodiff path (max_iter x nt assemblies on the tape).
 
-    ``engine="fused"`` additionally runs each step's FORWARD through the
-    fused whole-simulation Pallas kernel (gradients at fused-kernel speed;
-    ops/adjoint.simulate_value_and_grad) — the TPU fast path.
-
     Returns (n_opt, history of (n, loss)).
     """
-    if engine == "fused":
-        from flowsim_tpu.ops import adjoint
-
-        sset = dataclasses.replace(settings, newton="while")
-
-        def loss_fn(out):
-            H = upstream_stage_at(out, geo.z_bed[0], Q_targets)
-            return jnp.sum((H - jnp.asarray(H_targets)) ** 2)
-
-        n = jnp.asarray(float(n0))
-        history = []
-        for _ in range(steps):
-            g_geo = set_main_roughness(geo, n)
-            v, grads, _ = adjoint.simulate_value_and_grad(
-                loss_fn, g_geo, us_bc, ds_bc, h0, Q0, sset)
-            # d loss / d n_main: the roughness broadcast sums per-node grads
-            g = jnp.sum(grads[0].n_main)
-            history.append((float(n), float(v)))
-            step = jnp.clip(lr * g, -2e-3, 2e-3)
-            n = jnp.clip(n - step, bounds[0], bounds[1])
-        return float(n), history
-
     if settings.newton != newton:
         settings = dataclasses.replace(settings, newton=newton)
 

@@ -1,7 +1,7 @@
 """Roseires dam gated rating curve.
 
 Replicates the behavior of the reference ``RoseiresRatingCurve``
-(ref: cases/gerd_roseires/roseires_rating_curve.py) the TPU way:
+(ref: cases/gerd_roseires/roseires_rating_curve.py) as device-ready params:
 
 * the sklearn degree-2 regressions over the spillway (stage x opening) and
   deep-sluice (stage x tailwater) release tables become plain least-squares
@@ -26,11 +26,11 @@ import os
 from dataclasses import dataclass
 
 import numpy as np
-import pandas as pd
 from scipy.optimize import brentq
 
 from flowsim_tpu.api import RatingCurve
 from flowsim_tpu.ops import rating_curve as rcurve
+from flowsim_tpu.utils.io import read_rows, to_float_matrix
 
 DATA_DIR = os.path.join(os.path.dirname(__file__), "data")
 
@@ -48,14 +48,14 @@ CLOSE_TIMING = 3600 * 55
 
 
 def _fit_table(path: str):
-    """Quadratic bivariate least squares over a release table (ref :210-257)."""
-    df = pd.read_csv(path, index_col=0)
-    rows = df.index.to_numpy(dtype=float)
-    cols = df.columns.to_numpy(dtype=float)
+    """Quadratic bivariate least squares over a release table (ref :210-257):
+    row labels (first column) x column labels (header) -> release."""
+    header, *body = read_rows(path)
+    cols = np.array([float(c) for c in header[1:]])
+    table = to_float_matrix(body)
     X, y = [], []
-    for i, r in enumerate(rows):
-        for j, c in enumerate(cols):
-            v = df.iloc[i, j]
+    for r, vals in zip(table[:, 0], table[:, 1:]):
+        for c, v in zip(cols, vals):
             if not np.isnan(v):
                 X.append([r, c])
                 y.append(v)

@@ -14,13 +14,17 @@ This is a host-side tool (NumPy/SciPy); it runs once per dataset.
 
 from __future__ import annotations
 
+import csv
 import os
 
 import numpy as np
-import pandas as pd
 from scipy.optimize import least_squares
 
 from flowsim_tpu.geometry_tables import polyline_properties
+from flowsim_tpu.utils.io import read_rows, to_float_matrix
+
+OUTPUT_COLUMNS = ("z_min", "file", "b_main", "m_main", "err_main", "b_fp_left",
+                  "b_fp_right", "m_fp", "err_fp", "h_bankfull", "h_max")
 
 
 def area_curve(x, z, h_values):
@@ -141,7 +145,10 @@ def fit_compound_trapezoid(x, z, h, bank_z=None):
 
 
 def approximate_folder(folder, output_csv=None, bank_z_by_index=None):
-    """Fit every raw cross-section CSV in ``folder`` (ref :218-268)."""
+    """Fit every raw cross-section CSV in ``folder`` (ref :218-268).
+
+    Returns one dict per fitted section, keyed by :data:`OUTPUT_COLUMNS`;
+    ``output_csv`` also writes them as a CSV table."""
     records = []
     files = sorted(f for f in os.listdir(folder) if f.endswith(".csv"))
     for i, name in enumerate(files):
@@ -149,8 +156,8 @@ def approximate_folder(folder, output_csv=None, bank_z_by_index=None):
         # one pathological section (e.g. a canyon whose slope bound falls
         # below the fit's initial guess) must not abort the whole batch
         try:
-            data = pd.read_csv(os.path.join(folder, name))
-            x, z = data.iloc[:, 0].values, data.iloc[:, 1].values
+            data = to_float_matrix(read_rows(os.path.join(folder, name))[1:])
+            x, z = data[:, 0], data[:, 1]
             if len(x) < 3:
                 continue
             max_depth = float(z.max() - z.min())
@@ -165,10 +172,10 @@ def approximate_folder(folder, output_csv=None, bank_z_by_index=None):
             records.append(rec)
         except Exception as e:  # noqa: BLE001 — mirror ref's per-file catch
             print(f"Failed to process {name}: {e}")
-    df = pd.DataFrame(records)
-    cols = ["z_min", "file", "b_main", "m_main", "err_main", "b_fp_left",
-            "b_fp_right", "m_fp", "err_fp", "h_bankfull", "h_max"]
-    df = df[[c for c in cols if c in df.columns]]
+    records = [{c: r[c] for c in OUTPUT_COLUMNS} for r in records]
     if output_csv:
-        df.to_csv(output_csv, index=False)
-    return df
+        with open(output_csv, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=OUTPUT_COLUMNS)
+            w.writeheader()
+            w.writerows(records)
+    return records

@@ -37,7 +37,7 @@ from flowsim_tpu.ops.network import BranchDef, simulate_network
 
 
 def build(split_node=60, trib_scale=0.2, trib_length=10_000.0,
-          sim_duration=None, **model_kw):
+          sim_duration=gsettings.sim_duration, **model_kw):
     """Returns (branches, n_junctions, settings, solver) ready for
     :func:`flowsim_tpu.ops.network.simulate_network`.
 

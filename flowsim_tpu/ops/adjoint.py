@@ -27,11 +27,10 @@ reservoir stages, and J_k^T is the blockwise transpose of the assembled
 2x2 block-tridiagonal Jacobian ((J^T)_{i,i-1} = U_{i-1}^T, (J^T)_{ii} =
 D_i^T, (J^T)_{i,i+1} = L_{i+1}^T).  The vector-Jacobian products reuse
 :func:`flowsim_tpu.ops.preissmann.assemble` via ``jax.vjp`` — no hand
-derivatives beyond what the forward already has, and no Mosaic code is
-differentiated: the forward trajectory can come from the FUSED Pallas kernel
-(:func:`simulate_value_and_grad`) or the XLA while-Newton scan
-(:func:`simulate_implicit`, a ``jax.custom_vjp`` usable under plain
-``jax.grad``/``jit``/``vmap``).
+derivatives beyond what the forward already has.  The forward trajectory is
+the XLA while-Newton scan, either behind :func:`simulate_implicit` (a
+``jax.custom_vjp`` usable under plain ``jax.grad``/``jit``/``vmap``) or run
+eagerly by :func:`simulate_value_and_grad`.
 
 The gradient differs from the ``newton="fixed"`` autodiff gradient by
 O(tolerance): the IFT linearizes at the converged state, the unrolled path
@@ -186,18 +185,15 @@ def adjoint_backward(geo, us_bc, ds_bc, settings, depth, flow, rs_traj,
                      lateral_inflow=None, *, has_storage: bool = False):
     """The backward recursion: loss cotangents -> input gradients.
 
-    ``depth``/``flow``: the converged [nt, N] forward trajectory (from the
-    fused kernel or the XLA scan — only the solution states matter, to
-    O(tol)).  ``rs_traj``/``rs_us_traj``: the [nt] reservoir-stage
-    trajectories (NaN where absent).  ``ct_*``: the loss cotangents of the
+    ``depth``/``flow``: the converged [nt, N] forward trajectory (only the
+    solution states matter, to O(tol)).  ``rs_traj``/``rs_us_traj``: the
+    [nt] reservoir-stage trajectories (NaN where absent).  ``ct_*``: the loss cotangents of the
     corresponding outputs.  Returns ``(grad_geo, grad_us, grad_ds, grad_h0,
     grad_Q0, grad_qlat)`` (``grad_qlat`` is None when no lateral inflow).
     """
     nt = settings.n_time_levels
     dtype = depth.dtype
     method = settings.linear_solver
-    if method == "thomas" and jax.default_backend() == "tpu":
-        method = "pcr"  # the guard rejects thomas on TPU (ops/preissmann.py)
 
     gate_open0 = 1.0 if settings.gate_initially_open else 0.0
     bc_state0 = bnd.initial_bc_state(dtype, gate_open=gate_open0,
@@ -260,10 +256,7 @@ def _sim_output_cts(out: prs.SimOutput, ct: prs.SimOutput):
     ct_depth = _ct_array(ct.depth, out.depth)
     ct_flow = _ct_array(ct.flow, out.flow)
     ct_rs = _ct_array(ct.reservoir_stage, out.reservoir_stage)
-    # some engines (the fused kernel) leave the optional us-stage field None
-    rs_us = out.reservoir_stage_us
-    rs_us = out.reservoir_stage if rs_us is None else rs_us
-    ct_rs_us = _ct_array(getattr(ct, "reservoir_stage_us", None), rs_us)
+    ct_rs_us = _ct_array(ct.reservoir_stage_us, out.reservoir_stage_us)
     return ct_depth, ct_flow, ct_rs, ct_rs_us
 
 
@@ -308,53 +301,29 @@ simulate_implicit.defvjp(_sim_fwd, _sim_bwd)
 
 
 def simulate_value_and_grad(loss_fn, geo, us_bc, ds_bc, h0, Q0, settings,
-                            lateral_inflow=None, engine: str = "fused",
-                            interpret: bool | None = None):
-    """Gradients at fused-kernel speed: fused forward + adjoint backward.
+                            lateral_inflow=None):
+    """Two-phase value and gradient: XLA forward, then the adjoint backward.
 
-    Eager two-phase driver (NOT wrapped in jax.grad — the fused kernel's
-    host-side packing needs concrete geometry): run the forward with the
-    fused whole-simulation Pallas kernel (falling back to the XLA scan when
-    unsupported), evaluate ``loss_fn(SimOutput) -> scalar`` and its output
-    cotangents, then run the jitted adjoint recursion.
+    Eager driver (NOT wrapped in jax.grad): run the while-Newton forward,
+    evaluate ``loss_fn(SimOutput) -> scalar`` and its output cotangents,
+    then run the jitted adjoint recursion.
 
     Returns ``(loss, grads, out)`` with ``grads = (grad_geo, grad_us,
     grad_ds, grad_h0, grad_Q0, grad_qlat)``.  The backward executable is
     compiled once per (settings, shapes) and reused across calls — a
-    calibration loop pays one fused dispatch + one adjoint dispatch per
-    step.
+    calibration loop pays one forward + one adjoint dispatch per step.
     """
     check_diff_supported(us_bc, ds_bc, settings)
-    out = None
-    if engine == "fused":
-        from flowsim_tpu.ops.pallas.fused_newton import (FusedUnsupported,
-                                                         fused_simulate)
-
-        if interpret is None:
-            interpret = jax.devices()[0].platform != "tpu"
-        try:
-            out = fused_simulate(geo, us_bc, ds_bc, h0, Q0, settings,
-                                 interpret=interpret,
-                                 lateral_inflow=lateral_inflow)
-        except FusedUnsupported:
-            out = None
-    if out is None:
-        out = prs.simulate(geo, us_bc, ds_bc, h0, Q0, settings,
-                           lateral_inflow=lateral_inflow)
+    out = prs.simulate(geo, us_bc, ds_bc, h0, Q0, settings,
+                       lateral_inflow=lateral_inflow)
 
     loss, vjp_loss = jax.vjp(loss_fn, out)
     (ct,) = vjp_loss(jnp.ones_like(loss))
     has_storage = (us_bc.storage is not None) or (ds_bc.storage is not None)
     ct_depth, ct_flow, ct_rs, ct_rs_us = _sim_output_cts(out, ct)
-    rs_us = out.reservoir_stage_us
-    if rs_us is None:
-        # the fused kernel's SimOutput leaves this field None; its merged
-        # slot carries the us stage when only the upstream end has storage
-        rs_us = (out.reservoir_stage if us_bc.storage is not None
-                 else jnp.full_like(out.reservoir_stage, jnp.nan))
     grads = adjoint_backward(
         geo, us_bc, ds_bc, settings, out.depth, out.flow,
-        out.reservoir_stage, rs_us,
+        out.reservoir_stage, out.reservoir_stage_us,
         ct_depth, ct_flow, ct_rs, ct_rs_us,
         lateral_inflow=lateral_inflow, has_storage=has_storage)
     return loss, grads, out

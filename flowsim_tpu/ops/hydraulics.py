@@ -24,12 +24,12 @@ _EPS = 1e-30  # guards 0/0 only; never changes well-posed values
 
 
 # -- fractional powers ------------------------------------------------------
-# The TPU backend implements float64 ``pow`` with reduced precision (measured
-# residual floors of ~5e-5 at flood-peak levels vs ~1e-9 on CPU), which can
-# stall the Newton iteration above the reference's 1e-6 tolerance.  All the
-# Manning-law exponents are multiples of 1/6, so they are expressed through
-# sqrt (exact to 0.5 ulp) and a Newton-polished cube root instead.  On CPU
-# these agree with ``x ** p`` to ~1 ulp, preserving reference parity.
+# All the Manning-law exponents are multiples of 1/6, so they are expressed
+# through sqrt (exact to 0.5 ulp) and a Newton-polished cube root instead of
+# a general ``pow``, whose accuracy is backend-dependent: a sloppy pow floors
+# the Newton residual above the reference's 1e-6 tolerance.  These agree with
+# ``x ** p`` to ~1 ulp on the CPU, and the parity tests pin their values,
+# which is why this form stays.
 
 
 def _cbrt(x):

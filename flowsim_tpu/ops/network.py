@@ -22,7 +22,7 @@ split solves the SAME nonlinear system as the single reach (observed
 agreement ~1e-14 in f64).  Genuine approximation enters only at >= 3-way
 junctions, where the momentum flux through the junction is neglected.
 
-TPU-native structure: each branch contributes the same fused theta-box
+Structure: each branch contributes the same fused theta-box
 interior stencil as the single-reach solver (ops/preissmann.py
 ``cell_stencil`` — single source of truth for the physics, ref
 preissmann.py:220-301) and a 2x2 block-tridiagonal Jacobian; the junction
@@ -170,25 +170,9 @@ def default_initial_stages(branches, n_junctions, dtype):
 
 
 def _solve_junction_system(M, rhs):
-    """Solve the dense J x J Schur system, TPU-f64-safe.
-
-    TPU's LuDecomposition expander is f32-only, so an f64 system on TPU is
-    solved by f32 LU plus two f64 iterative-refinement steps (residual
-    computed in f64) — near-f64 accuracy for the well-conditioned junction
-    matrices, and the Newton increment only needs a few correct digits
-    anyway (same inexact-Newton argument as linear_solver="pcr_f32").
-    """
-    J = M.shape[0]
-    if J == 1:
+    """Solve the dense J x J Schur system (a scalar divide when J == 1)."""
+    if M.shape[0] == 1:
         return rhs / M[0, 0]
-    if M.dtype == jnp.float64 and jax.default_backend() == "tpu":
-        f32 = jnp.float32
-        Mf = M.astype(f32)
-        x = jnp.linalg.solve(Mf, rhs.astype(f32)).astype(M.dtype)
-        for _ in range(2):
-            r = rhs - M @ x
-            x = x + jnp.linalg.solve(Mf, r.astype(f32)).astype(M.dtype)
-        return x
     return jnp.linalg.solve(M, rhs)
 
 
@@ -331,7 +315,7 @@ def simulate_network(branches: List[BranchDef], n_junctions: int,
     to the longest branch length and runs ONE batched assembly + ONE batched
     multi-RHS block-tridiagonal solve per Newton iteration (pad nodes carry
     delta-copy equations, so the padded ends mirror each branch's real end) —
-    the fast path for many-branch networks on TPU, numerically equivalent to
+    the fast path for many-branch networks, numerically equivalent to
     within solver roundoff (the padded PCR reduces in a different order).
     Requires all branch geometries to share one pytree structure.
 
@@ -355,7 +339,8 @@ def simulate_network(branches: List[BranchDef], n_junctions: int,
     """
     _check_supported(branches, n_junctions, settings)
     settings = prs.guard_f32_floor(settings)
-    prs.guard_tpu_thomas(settings)
+    if junction_area is not None and len(junction_area) != n_junctions:
+        raise ValueError(f"junction_area must have {n_junctions} entries")
     if junction_rating is not None:
         if len(junction_rating) != n_junctions:
             raise ValueError(f"junction_rating must have {n_junctions} entries")
@@ -368,14 +353,6 @@ def simulate_network(branches: List[BranchDef], n_junctions: int,
     # ~8x slower than prs.simulate before this split)
     topo, dyn = _split_branches(branches)
     rating = None if junction_rating is None else tuple(junction_rating)
-    if engine == "fused":
-        # whole-network single-dispatch Pallas kernel (ops/pallas/
-        # fused_network.py); raises FusedUnsupported outside its scope
-        from flowsim_tpu.ops.pallas.fused_network import fused_simulate_network
-        return fused_simulate_network(
-            branches, n_junctions, settings, Y0=Y0,
-            junction_area=junction_area, junction_rating=rating,
-            interpret=jax.devices()[0].platform != "tpu")
     if engine == "stacked":
         return _simulate_network_stacked(dyn, Y0, junction_area, rating,
                                          topo=topo, n_junctions=n_junctions,
@@ -406,7 +383,6 @@ def simulate_network_chunk(branches: List[BranchDef], n_junctions: int,
     """
     _check_supported(branches, n_junctions, settings)
     settings = prs.guard_f32_floor(settings)
-    prs.guard_tpu_thomas(settings)
     topo, dyn = _split_branches(branches)
     rating = None if junction_rating is None else tuple(junction_rating)
     impl = (_simulate_network_stacked if engine == "stacked"
@@ -724,7 +700,7 @@ def _simulate_network_stacked(dyn, Y0, junction_area, junction_rating,
 
     # static index maps so the per-iteration Schur assembly is a handful of
     # gathers/scatter-adds instead of Python loops of .at ops (which made
-    # the traced graph — and TPU compile time — grow with junction count)
+    # the traced graph — and compile time — grow with junction count)
     eb, eidx, esgn, ejj = [], [], [], []      # junction ends
     for b, t in enumerate(topo):
         if t[1] is not None:

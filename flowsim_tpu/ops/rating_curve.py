@@ -74,12 +74,8 @@ def make_polynomial_general(coefficients, stage_shift=0.0) -> RatingCurveParams:
 
     The reference's ``scale=True`` fit path supports any degree (ref
     rating_curve.py:84,101-105 stores a numpy Polynomial and evaluates it);
-    kind="poly_n" is the device evaluation of the same fit.  As a
-    JUNCTION release curve the fused network kernels evaluate it in-kernel
-    (descending Horner blocks + the analytic derivative polynomial,
-    ops/pallas/fused_network._pack_jrate_rows); as a single-reach BOUNDARY
-    rating the fused kernel still packs quadratics only and falls back to
-    the XLA path for this kind (FusedUnsupported)."""
+    kind="poly_n" is the device evaluation of the same fit, usable as a
+    boundary rating or a junction release curve."""
     return RatingCurveParams(
         kind="poly_n",
         coeffs=farray(np.atleast_1d(coefficients)),
@@ -113,10 +109,10 @@ def make_blended_poly(low_quad, high_quad, pivot_stage, buffer=0.5, fd_step=1e-3
     (ref roseires_rating_curve.py:98-109).
 
     The quadratics are re-based around the pivot stage before storage: in the
-    raw basis the three terms are ~1e6 and cancel to ~1e4, which amplifies the
-    TPU f64-emulation rounding (~5e-11 relative) to ~5e-5 absolute — enough to
-    stall a 1e-6 Newton tolerance.  Centered, the terms are O(Q) and the
-    evaluation is exact to ~1e-12 on every backend.
+    raw basis the three terms are ~1e6 and cancel to ~1e4, so any relative
+    rounding is amplified ~100x in absolute terms.  Centered, the terms are
+    O(Q) and the evaluation is exact to ~1e-12 on every backend; parity tests
+    pin these values, which is why the centered form stays.
     """
 
     def center(quad, s0):
@@ -230,10 +226,10 @@ def discharge(rc: RatingCurveParams, stage):
         ds = stage - rc.pivot_stage  # centered basis (see make_blended_poly)
         low = _quad(rc.coeffs, ds)
         high = _quad(rc.coeffs_high, ds)
-        # low + a*(high-low), NOT (1-a)*low + a*high: the XLA TPU f64
-        # emulation computes the fused two-product form with ~5e-9 relative
-        # error (measured; enough to stall Newton at tol 1e-6), while the
-        # single-product delta form is exact to ~1e-12.  Same real algebra.
+        # low + a*(high-low), NOT (1-a)*low + a*high: the single-product
+        # delta form rounds once where the two-product form can round twice
+        # (and fma-contract differently per backend).  Same real algebra;
+        # parity tests pin the values of this form.
         return low + alpha * (high - low)
     if rc.kind == "table":
         return jnp.interp(stage, rc.table_stage, rc.table_q)

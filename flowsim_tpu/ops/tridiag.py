@@ -13,12 +13,12 @@ preissmann.py:146).  Here:
 
 * :func:`block_thomas` — sequential block LU via ``lax.scan`` (O(N) depth);
   the correctness reference and the best choice for tiny N on CPU (~3x
-  faster than PCR at N=121).  CPU-only in practice: the nested
-  scan-in-while-in-scan variant reproducibly crashes the TPU worker
-  (observed on v5e, jax 0.9) — use PCR on TPU.
+  faster than PCR at N=121).
 * :func:`block_pcr` — parallel cyclic reduction: ceil(log2 N) sweeps of
-  elementwise 2x2 algebra over all nodes, each a fused VPU pass.  O(log N)
-  depth, the TPU default, identical results to ~1e-12.
+  elementwise 2x2 algebra over all nodes, each one fused elementwise pass.
+  O(log N) depth, identical results to ~1e-12.
+
+:func:`default_linear_solver` picks between them per backend.
 
 Both are batch-friendly (leading batch dims broadcast) and differentiable.
 All 2x2 inverses are closed form; the PCR paths apply a tiny-pivot guard by
@@ -65,7 +65,7 @@ def _inv2(M, eps=0.0):
 
 
 def _mm(A, B):
-    """[..., 2, 2] @ [..., 2, 2] without einsum (keeps VPU-friendly)."""
+    """[..., 2, 2] @ [..., 2, 2] without einsum (stays elementwise)."""
     return jnp.stack(
         [
             jnp.stack(
@@ -147,70 +147,6 @@ def block_thomas(L, D, U, b):
     return out if multi else out[..., 0]
 
 
-def block_thomas_factor(L, D, U):
-    """Forward block-LU sweep; returns reusable factors (C, Dhat_inv).
-
-    With C_i = Dhat_i^{-1} U_i and Dhat_i = D_i - L_i C_{i-1}, a later RHS is
-    solved by d_i = Dhat_i^{-1} (b_i - L_i d_{i-1}) then back-substitution —
-    the factorization is shared across multiple right-hand sides (used by the
-    SPIKE domain-decomposed solve, which needs 5 RHS per local system).
-    """
-    L_ = jnp.moveaxis(L, -3, 0)
-    D_ = jnp.moveaxis(D, -3, 0)
-    U_ = jnp.moveaxis(U, -3, 0)
-
-    def fwd(Cprev, inp):
-        Li, Di, Ui = inp
-        Dhat_inv = _inv2(Di - _mm(Li, Cprev))
-        Ci = _mm(Dhat_inv, Ui)
-        return Ci, (Ci, Dhat_inv)
-
-    _, (C, Dhat_inv) = jax.lax.scan(fwd, jnp.zeros_like(D_[0]), (L_, D_, U_))
-    return C, Dhat_inv, L_
-
-
-def block_thomas_apply(factor, b):
-    """Solve with a precomputed factorization.
-
-    ``b``: vector RHS ``[N, 2]`` (optionally with leading batch axes
-    ``[..., N, 2]``), or multi-RHS ``[N, 2, m]`` (trailing column axis).
-    The ambiguous ``[2, 2, 2]`` shape is read as multi-RHS.
-    """
-    C, Dhat_inv, L_ = factor
-    N = C.shape[0]
-    if b.ndim == 2:  # vector RHS [N, 2]
-        b_ = jnp.moveaxis(b, -2, 0)
-
-        def fwd(dprev, inp):
-            Dinv, Li, bi = inp
-            di = _mv(Dinv, bi - _mv(Li, dprev))
-            return di, di
-
-        _, d = jax.lax.scan(fwd, jnp.zeros_like(b_[0]), (Dhat_inv, L_, b_))
-
-        def bwd(x_next, inp):
-            Ci, di = inp
-            xi = di - _mv(Ci, x_next)
-            return xi, xi
-
-        _, xs = jax.lax.scan(bwd, jnp.zeros_like(b_[0]), (C, d), reverse=True)
-        return jnp.moveaxis(xs, 0, -2)
-    if b.shape[-3] == N and b.shape[-2] == 2:
-        # multi-RHS [..., N, 2, m]: vmap over the trailing column axis
-        return jax.vmap(lambda col: block_thomas_apply(factor, col),
-                        in_axes=-1, out_axes=-1)(b)
-    if b.shape[-2] == N and b.shape[-1] == 2:
-        # leading batch axes over vector RHS — previously misrouted into the
-        # multi-RHS branch (batch read as the node axis: shape error, or
-        # silently wrong answers when B == N)
-        flat = b.reshape((-1,) + b.shape[-2:])
-        out = jax.vmap(lambda bb: block_thomas_apply(factor, bb))(flat)
-        return out.reshape(b.shape)
-    raise ValueError(
-        f"RHS shape {b.shape} matches neither [..., {N}, 2] nor "
-        f"[..., {N}, 2, m]")
-
-
 def _shift(arr, s, node_axis):
     """arr shifted so index i reads i+s; out-of-range rows give zeros."""
     N = arr.shape[node_axis]
@@ -245,8 +181,8 @@ def _pcr_core(L, D, U, b, pivot_eps: float | None = None):
     a no-op there.  After ceil(log2 N) sweeps the system is block diagonal.
 
     Complexity: O(N log N) work but O(log N) depth — each sweep is one fused
-    elementwise pass, which is how a TPU wants to see this solve (vs the
-    O(N)-depth scalar dependency chain of Thomas/spsolve).
+    elementwise pass (vs the O(N)-depth scalar dependency chain of
+    Thomas/spsolve).
 
     ``pivot_eps=None`` selects the dtype default (:data:`PIVOT_EPS`); pass
     ``0.0`` to disable the guard entirely.
@@ -391,39 +327,40 @@ def blocks_to_dense(L, D, U):
     return A
 
 
+LINEAR_SOLVERS = ("thomas", "pcr", "pcr_f32")
+
+
+def default_linear_solver(platform: str | None = None) -> str:
+    """The solver every entry point uses when the caller names none.
+
+    ``"thomas"`` on the CPU, where its O(N) scan is ~3x faster than PCR at
+    the flagship's N=121.  ``"pcr"`` (float64) on a GPU: each PCR sweep is
+    one fused kernel, while Thomas runs 2N dependent scan steps, each a
+    device loop trip whose predicate the host reads back.
+    ``"pcr_f32"`` is never a default; it stays a user option.
+    """
+    if platform is None:
+        platform = jax.default_backend()
+    return "thomas" if platform == "cpu" else "pcr"
+
+
 @partial(jax.jit, static_argnames=("method",))
 def solve_block_tridiag(L, D, U, b, method: str = "pcr"):
     """Solve the 2x2 block-tridiagonal system.
 
-    ``b``: [..., N, 2] vector RHS, or [..., N, 2, m] multi-RHS (thomas /
-    pcr / pcr_f32 share the reduction work across the m columns; the pallas
-    kernels solve the columns independently).
+    ``b``: [..., N, 2] vector RHS, or [..., N, 2, m] multi-RHS (every
+    method shares the reduction work across the m columns).
     """
-    if b.ndim == L.ndim and method in ("pallas_pcr", "pallas_tiled"):
-        return jax.vmap(
-            lambda col: solve_block_tridiag(L, D, U, col, method=method),
-            in_axes=-1, out_axes=-1)(b)
     if method == "thomas":
         return block_thomas(L, D, U, b)
     elif method == "pcr":
         return block_pcr(L, D, U, b)
     elif method == "pcr_f32":
         # inexact-Newton inner solve: the increment only needs a few correct
-        # digits for Newton to keep its convergence behavior (measured on the
-        # flagship: identical 4803 iterations at tol 1e-6 on the f64
-        # residual), and f32 PCR is much cheaper than emulated-f64 on TPU.
+        # digits for Newton to keep its convergence behavior (identical 4803
+        # iterations on the flagship at tol 1e-6 on the f64 residual).
         x = block_pcr(L.astype(jnp.float32), D.astype(jnp.float32),
                       U.astype(jnp.float32), b.astype(jnp.float32))
         return x.astype(b.dtype)
-    elif method == "pallas_pcr":
-        # single-VMEM-block TPU kernel (f32); result cast back to b's dtype
-        from flowsim_tpu.ops.pallas.pcr_kernel import pcr_pallas
-
-        return pcr_pallas(L, D, U, b).astype(b.dtype)
-    elif method == "pallas_tiled":
-        # two-level SPIKE kernel (f32): in-VMEM PCR per tile + reduced
-        # inter-tile system; any N (the long-reach solver)
-        from flowsim_tpu.ops.pallas.tiled_pcr import tiled_spike_pallas
-
-        return tiled_spike_pallas(L, D, U, b).astype(b.dtype)
-    raise ValueError(f"unknown method {method!r}")
+    raise ValueError(f"unknown method {method!r}; expected one of "
+                     f"{LINEAR_SOLVERS}")

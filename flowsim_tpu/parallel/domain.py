@@ -6,7 +6,7 @@ Long reaches are sharded over the ``space`` mesh axis with ``shard_map``:
   is a 2-message halo per Newton iteration — (a) each shard sends its first
   node's closure state to the left neighbor (for the straddling cell), and
   (b) sends its last (straddling) cell's momentum-row entries to the right
-  neighbor (whose first block row needs them).  Both ride ICI ``ppermute``.
+  neighbor (whose first block row needs them).  Both are ``ppermute`` collectives.
 * **Linear solve** uses SPIKE substructuring: each shard factors its local
   2x2-block tridiagonal system once per iteration (shared across 5 RHS:
   the residual plus two spike columns per side), eliminates its interior
@@ -30,23 +30,17 @@ import jax.numpy as jnp
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:
-    from jax import shard_map as _shard_map
-
-    def shard_map(f, mesh, in_specs, out_specs):
-        return _shard_map(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_vma=False)
-except (ImportError, TypeError):  # older API
-    from jax.experimental.shard_map import shard_map as _shard_map_old
-
-    def shard_map(f, mesh, in_specs, out_specs):
-        return _shard_map_old(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_rep=False)
-
 from flowsim_tpu.config import GRAVITY as g
 from flowsim_tpu.ops import boundary as bnd
 from flowsim_tpu.ops import preissmann as prs
 from flowsim_tpu.ops import sections as sec
 from flowsim_tpu.ops import tridiag
 from flowsim_tpu.parallel.mesh import SPACE_AXIS
+
+
+def shard_map(f, mesh, in_specs, out_specs):
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+                         check_vma=False)
 
 
 def _pull_right_first(x, axis_name):
@@ -84,12 +78,15 @@ def _extend(fields, axis_name):
     return {k: jnp.concatenate([v, halo[k]]) for k, v in fields.items()}
 
 
-def _spike_solve(L, D, U, b, axis_name):
+def _spike_solve(L, D, U, b, axis_name, method):
     """Distributed block-tridiagonal solve via SPIKE substructuring.
 
     L, D, U: [n_loc, 2, 2] with L[0] / U[-1] holding the couplings to the
     neighbor shards (zero on the global boundary shards).  Returns the local
-    solution block [n_loc, 2].
+    solution block [n_loc, 2].  ``method`` is the local solver
+    (``settings.linear_solver``): the residual and the four spike columns
+    are one 5-column solve, so PCR (the GPU default) keeps the local solve
+    free of the n_loc-step sequential scan that Thomas would run.
     """
     S = lax.axis_size(axis_name)
     s_idx = lax.axis_index(axis_name)
@@ -99,12 +96,12 @@ def _spike_solve(L, D, U, b, axis_name):
     L_int = L.at[0].set(0.0)
     U_int = U.at[-1].set(0.0)
 
-    factor = tridiag.block_thomas_factor(L_int, D, U_int)
-    G = tridiag.block_thomas_apply(factor, b)                      # [n, 2]
     EV = jnp.zeros_like(L).at[0].set(L_ext)                        # [n, 2, 2]
     EW = jnp.zeros_like(U).at[-1].set(U_ext)
-    V = tridiag.block_thomas_apply(factor, EV)                     # [n, 2, 2]
-    W = tridiag.block_thomas_apply(factor, EW)
+    X = tridiag.solve_block_tridiag(                               # [n, 2, 5]
+        L_int, D, U_int, jnp.concatenate([b[..., None], EV, EW], axis=-1),
+        method=method)
+    G, V, W = X[..., 0], X[..., 1:3], X[..., 3:5]
 
     # reduced system over shard-boundary unknowns y_s = [x_first; x_last]
     pieces = jnp.concatenate(
@@ -130,23 +127,7 @@ def _spike_solve(L, D, U, b, axis_name):
     br = jnp.concatenate([G0, Gl], axis=-1)  # [S, 4]
 
     # tiny sequential 4x4 block Thomas, solved redundantly on every shard
-    def fwd(carry, inp):
-        Cprev, dprev = carry
-        Li, Di, Ui, bi = inp
-        Dh = Di - Li @ Cprev
-        Ci = jnp.linalg.solve(Dh, Ui)
-        di = jnp.linalg.solve(Dh, bi - Li @ dprev)
-        return (Ci, di), (Ci, di)
-
-    (_, _), (Cr, dr) = lax.scan(fwd, (jnp.zeros((4, 4), D.dtype), jnp.zeros((4,), D.dtype)),
-                                (Lr, Dr, Ur, br))
-
-    def bwd(x_next, inp):
-        Ci, di = inp
-        xi = di - Ci @ x_next
-        return xi, xi
-
-    _, y = lax.scan(bwd, jnp.zeros((4,), D.dtype), (Cr, dr), reverse=True)  # [S, 4]
+    y = tridiag.dense_block_thomas(Lr, Dr, Ur, br)  # [S, 4]
 
     x_prev_last = jnp.where(s_idx > 0, 1.0, 0.0) * y[jnp.maximum(s_idx - 1, 0), 2:4]
     x_next_first = jnp.where(s_idx < S - 1, 1.0, 0.0) * y[jnp.minimum(s_idx + 1, S - 1), 0:2]
@@ -320,7 +301,7 @@ def _local_time_scan(geo_loc, h0_loc, Q0_loc, us, ds, bc_state0, settings,
                 bc_state.reservoir_stage, axis, bc_state=bc_state,
                 reservoir_stage_prev_us=bc_state.reservoir_stage_us,
             )
-            delta = _spike_solve(L, D, U, b, axis)
+            delta = _spike_solve(L, D, U, b, axis, settings.linear_solver)
             return h + delta[:, 0], Q + delta[:, 1], err, res_stage, res_us
 
         def cond(c):
@@ -398,8 +379,17 @@ def simulate_sharded(geo, us_bc, ds_bc, h0, Q0, settings: prs.PreissmannSettings
             reservoir_stage_us=np.asarray(np.nan, dt0),
         )
 
-    def shard_fn(geo_loc, h0_loc, Q0_loc, us, ds, bc0):
-        return _local_time_scan(geo_loc, h0_loc, Q0_loc, us, ds, bc0,
+    out, final = _run_sharded(geo, h0, Q0, us_bc, ds_bc, bc_state0,
+                              settings=settings, mesh=mesh, k0=int(k0))
+    return (out, final) if return_final_state else out
+
+
+# one cached executable per (settings, mesh, k0) and input structure: a
+# jit built inside simulate_sharded would recompile on every call
+@partial(jax.jit, static_argnames=("settings", "mesh", "k0"))
+def _run_sharded(geo, h0, Q0, us_bc, ds_bc, bc0, *, settings, mesh, k0):
+    def shard_fn(geo_loc, h0_loc, Q0_loc, us, ds, bc0_):
+        return _local_time_scan(geo_loc, h0_loc, Q0_loc, us, ds, bc0_,
                                 settings, k0=k0)
 
     store_bnd = getattr(settings, "store", "full") == "boundaries"
@@ -407,7 +397,7 @@ def simulate_sharded(geo, us_bc, ds_bc, h0, Q0, settings: prs.PreissmannSettings
     geo_specs = jax.tree_util.tree_map(lambda _: P(SPACE_AXIS), geo)
     bc_spec_us = jax.tree_util.tree_map(lambda _: P(), us_bc)
     bc_spec_ds = jax.tree_util.tree_map(lambda _: P(), ds_bc)
-    bc_state_spec = jax.tree_util.tree_map(lambda _: P(), bc_state0)
+    bc_state_spec = jax.tree_util.tree_map(lambda _: P(), bc0)
     f = shard_map(
         shard_fn, mesh,
         in_specs=(geo_specs, P(SPACE_AXIS), P(SPACE_AXIS), bc_spec_us,
@@ -416,30 +406,24 @@ def simulate_sharded(geo, us_bc, ds_bc, h0, Q0, settings: prs.PreissmannSettings
                    P(None), P(None), P(None), P(SPACE_AXIS), P(SPACE_AXIS),
                    bc_state_spec),
     )
-
     # post-processing stays inside jit: on a multi-host mesh the outputs are
     # not fully addressable per process, so eager concatenation would fail
-    @jax.jit
-    def run(geo, h0, Q0, us_bc, ds_bc, bc0):
-        (hs, qs, iters, errs, conv, stages, gates, stages_us,
-         h_fin, Q_fin, bc_fin) = f(geo, h0, Q0, us_bc, ds_bc, bc0)
-        h0_out = h0[jnp.array([0, -1])] if store_bnd else h0
-        Q0_out = Q0[jnp.array([0, -1])] if store_bnd else Q0
-        depth = jnp.concatenate([h0_out[None], hs], axis=0)
-        flow = jnp.concatenate([Q0_out[None], qs], axis=0)
-        pad0 = lambda x, v: jnp.concatenate(
-            [jnp.reshape(jnp.asarray(v, dtype=x.dtype), (1,)), x])
-        out = prs.SimOutput(
-            depth=depth, flow=flow,
-            iterations=pad0(iters, 0), error=pad0(errs, 0.0),
-            converged=pad0(conv, True), reservoir_stage=pad0(stages, jnp.nan),
-            gate_open=pad0(gates, bc0.gate_open),
-            reservoir_stage_us=pad0(stages_us, jnp.nan),
-        )
-        return out, (h_fin, Q_fin, bc_fin)
-
-    out, final = run(geo, h0, Q0, us_bc, ds_bc, bc_state0)
-    return (out, final) if return_final_state else out
+    (hs, qs, iters, errs, conv, stages, gates, stages_us,
+     h_fin, Q_fin, bc_fin) = f(geo, h0, Q0, us_bc, ds_bc, bc0)
+    h0_out = h0[jnp.array([0, -1])] if store_bnd else h0
+    Q0_out = Q0[jnp.array([0, -1])] if store_bnd else Q0
+    depth = jnp.concatenate([h0_out[None], hs], axis=0)
+    flow = jnp.concatenate([Q0_out[None], qs], axis=0)
+    pad0 = lambda x, v: jnp.concatenate(
+        [jnp.reshape(jnp.asarray(v, dtype=x.dtype), (1,)), x])
+    out = prs.SimOutput(
+        depth=depth, flow=flow,
+        iterations=pad0(iters, 0), error=pad0(errs, 0.0),
+        converged=pad0(conv, True), reservoir_stage=pad0(stages, jnp.nan),
+        gate_open=pad0(gates, bc0.gate_open),
+        reservoir_stage_us=pad0(stages_us, jnp.nan),
+    )
+    return out, (h_fin, Q_fin, bc_fin)
 
 
 def simulate_sharded_ensemble(geo_batch, us_bc, ds_bc, h0, Q0,
@@ -552,7 +536,7 @@ def _local_time_scan_batched(geo_loc, h0_loc, Q0_loc, us, ds, settings,
             bc_member.reservoir_stage, axis, bc_state=bc_member,
             reservoir_stage_prev_us=bc_member.reservoir_stage_us,
         )
-        delta = _spike_solve(L, D, U, b, axis)
+        delta = _spike_solve(L, D, U, b, axis, settings.linear_solver)
         return h + delta[:, 0], Q + delta[:, 1], err, rs, rs_us
 
     def newton(h, Q, k, bc, prev_ext):

@@ -55,8 +55,7 @@ def batch_boundaries(bcs):
     This is what upgrades the reference's serial inflow/roughness sweeps
     (ref n_calibrate.py:58-62, one full re-simulation per member) to a single
     batched run with per-member hydrographs, rating coefficients, and storage
-    parameters (BASELINE.md Monte-Carlo target: "10^4 roughness/inflow
-    scenarios").
+    parameters (e.g. 10^4 roughness/inflow scenarios).
     """
     kinds = {b.kind for b in bcs}
     if len(kinds) != 1:
@@ -69,7 +68,7 @@ def batch_boundaries(bcs):
 def batched_simulate(geo_batch, us_bc, ds_bc, h0, Q0, settings: prs.PreissmannSettings,
                      mesh: Optional[Mesh] = None, shard: bool = True,
                      us_axes=None, ds_axes=None, chunk_size: Optional[int] = None,
-                     engine: str = "xla", lateral_inflow=None):
+                     lateral_inflow=None):
     """Simulate a batch of scenarios differing in geometry (e.g. roughness)
     and, optionally, boundary forcing.
 
@@ -79,28 +78,12 @@ def batched_simulate(geo_batch, us_bc, ds_bc, h0, Q0, settings: prs.PreissmannSe
     (likewise downstream); with ``us_axes=None`` the boundary is shared.
 
     ``chunk_size``: run the batch as sequential vmapped chunks inside one
-    jit (``lax.map``).  Measured on v5e: per-sim throughput is flat from
-    batch 2048 to 8192 (~6.1k sims/s) but degrades ~22% at 16384 in one
-    monolithic vmap; chunking a 16k batch at 8192 recovers the flat rate.
+    jit (``lax.map``), which bounds the working set of a large ensemble.
     Requires the batch size to be a multiple of ``chunk_size``.
-
-    ``engine="fused"`` runs the members through the batched fused Pallas
-    kernel (ops/pallas/fused_newton.py: members on the VPU sublane axis, one
-    kernel dispatch per VMEM-sized chunk) — the fast path for small/medium
-    ensembles and calibration sweeps on TPU.  Raises ``FusedUnsupported``
-    outside the kernel's BC/geometry surface; single-device only (``shard``
-    and ``mesh`` are ignored).
     """
-    if engine == "fused":
-        return _fused_batched_simulate(geo_batch, us_bc, ds_bc, h0, Q0,
-                                       settings, us_axes, ds_axes, chunk_size,
-                                       mesh=mesh if shard else None,
-                                       lateral_inflow=lateral_inflow)
-
     # lateral_inflow: shared [N], per-member [B, N] constants, or per-member
     # time-varying [B, nt, N] (express a shared time-varying inflow by
-    # broadcasting — a 2D argument is member-major at this entry, matching
-    # the fused kernel's contract)
+    # broadcasting — a 2D argument is member-major at this entry)
     q = lateral_inflow
     q_ax = 0 if (q is not None and jnp.ndim(q) >= 2) else None
     B_all = jax.tree_util.tree_leaves(geo_batch)[0].shape[0]
@@ -109,7 +92,7 @@ def batched_simulate(geo_batch, us_bc, ds_bc, h0, Q0, settings: prs.PreissmannSe
             and q.shape[0] == B_all):
         # member-major [B, N] and a shared time-varying [nt, N] field are
         # indistinguishable when B == nt — refuse rather than silently pick
-        # member-major (mirrors the fused drivers' guard)
+        # member-major
         raise ValueError(
             f"2-D lateral_inflow is ambiguous when the member count equals "
             f"the level count (B={B_all} == nt={settings.n_time_levels}): "
@@ -177,67 +160,6 @@ def batched_simulate(geo_batch, us_bc, ds_bc, h0, Q0, settings: prs.PreissmannSe
     return jax.vmap(one, in_axes=in_axes)(geo_batch, us_bc, ds_bc, h0, Q0, q)
 
 
-def _fused_batched_simulate(geo_batch, us_bc, ds_bc, h0, Q0, settings,
-                            us_axes, ds_axes, chunk_size, mesh=None,
-                            lateral_inflow=None):
-    """Drive :func:`fused_simulate_batched` in VMEM-sized member chunks.
-
-    With ``mesh`` the chunks are additionally spread over the mesh's
-    ensemble axis — every device runs its own fused-kernel dispatch on its
-    member slice (``fused_simulate_batched_sharded``), so one "chunk" holds
-    ``n_devices x`` the per-device VMEM cap."""
-    from flowsim_tpu.ops.pallas.fused_newton import (
-        _storage_mode, fused_simulate_batched, fused_simulate_batched_sharded,
-        max_fused_batch)
-
-    B = jax.tree_util.tree_leaves(geo_batch)[0].shape[0]
-    n = geo_batch.n_nodes
-
-    def _curve(bc):  # per-member stage-grid tables cost VMEM; shrink cap
-        bc0 = (jax.tree_util.tree_map(lambda x: x[0], bc)
-               if (bc is us_bc and us_axes is not None)
-               or (bc is ds_bc and ds_axes is not None) else bc)
-        return (bc0.kind == "fixed_depth" and bc0.storage is not None
-                and _storage_mode(bc0.storage) != "storage_simple")
-
-    cap = chunk_size or max_fused_batch(n, settings.n_time_levels,
-                                        getattr(settings, "store", "full"),
-                                        getattr(settings, "out_memory", "auto"),
-                                        stg_curve=(int(_curve(us_bc))
-                                                   + int(_curve(ds_bc))))
-    if mesh is not None:
-        cap = cap * mesh.shape[ENSEMBLE_AXIS]
-    # same convention as api.Solver.run: Mosaic on TPU, interpret elsewhere
-    interpret = jax.devices()[0].platform != "tpu"
-    h0b = jnp.ndim(h0) > 1
-    Q0b = jnp.ndim(Q0) > 1
-
-    qb = np.ndim(lateral_inflow) > 1
-
-    outs = []
-    for s in range(0, B, cap):
-        e = min(B, s + cap)
-        sl = lambda x: x[s:e]
-        args = (
-            jax.tree_util.tree_map(sl, geo_batch),
-            jax.tree_util.tree_map(sl, us_bc) if us_axes is not None else us_bc,
-            jax.tree_util.tree_map(sl, ds_bc) if ds_axes is not None else ds_bc,
-            sl(h0) if h0b else h0, sl(Q0) if Q0b else Q0, settings)
-        kw = dict(interpret=interpret, us_batched=us_axes is not None,
-                  ds_batched=ds_axes is not None,
-                  lateral_inflow=(sl(np.asarray(lateral_inflow)) if qb
-                                  else lateral_inflow))
-        if mesh is not None:
-            out = fused_simulate_batched_sharded(*args, mesh=mesh, **kw)
-        else:
-            out = fused_simulate_batched(*args, **kw)
-        outs.append(out)
-    if len(outs) == 1:
-        return outs[0]
-    return jax.tree_util.tree_map(
-        lambda *xs: jnp.concatenate(xs, axis=0), *outs)
-
-
 def stack_geometries(geos):
     """Stack per-member geometry pytrees into one batched pytree."""
     return jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *geos)
@@ -280,67 +202,6 @@ def batched_simulate_network(branches, n_junctions, settings, batch,
                     "junction ends cannot be overridden per member")
             if k == "dx":
                 raise ValueError("dx is static; rebuild the branches instead")
-
-    if engine == "fused":
-        # whole-ensemble single-dispatch Pallas kernel: members x branches
-        # on the VPU sublane axis (ops/pallas/fused_network.py
-        # fused_simulate_network_batched); raises FusedUnsupported outside
-        # its scope — callers fall back to engine="stacked"/"loop".
-        # Ensembles beyond the VMEM member cap run as sequential chunked
-        # dispatches, concatenated on the member axis.
-        import jax as _jax
-
-        from flowsim_tpu.ops.pallas.fused_network import (
-            fused_simulate_network_batched, max_fused_network_batch)
-
-        if shard:
-            raise ValueError("engine='fused' ensembles run per device; use "
-                             "shard=False (shard externally per chip)")
-        interp = _jax.devices()[0].platform != "tpu"
-        M = None
-        for d in batch:
-            for v in jax.tree_util.tree_leaves(d):
-                M = v.shape[0] if M is None else M
-        # compute the VMEM member cap from EFFECTIVE branches (member-0
-        # overrides applied): a batch override can introduce curve storage
-        # whose per-member stage-grid tables shrink the cap
-        eff = []
-        for br, d in zip(branches, batch):
-            o = {k: jax.tree_util.tree_map(lambda x: x[0], v)
-                 for k, v in d.items() if k in ("us", "ds")}
-            eff.append(dataclasses.replace(br, **o) if o else br)
-        cap = max_fused_network_batch(eff, settings)
-        if cap < 8:
-            from flowsim_tpu.ops.pallas.fused_newton import FusedUnsupported
-
-            raise FusedUnsupported(
-                f"{len(branches)}-branch networks exceed the fused VMEM "
-                "member budget (not even one 8-member vreg block fits); "
-                "use engine='stacked'")
-        kw = dict(Y0=Y0, junction_area=junction_area,
-                  junction_rating=junction_rating, interpret=interp)
-        if M is None or M <= cap:
-            return fused_simulate_network_batched(
-                branches, n_junctions, settings, batch, **kw)
-        outs = []
-        for lo in range(0, M, cap):
-            part = [jax.tree_util.tree_map(lambda x: x[lo:lo + cap], d)
-                    for d in batch]
-            outs.append(fused_simulate_network_batched(
-                branches, n_junctions, settings, part, **kw))
-        cat = lambda xs: jnp.concatenate(xs, axis=0)
-        return net.NetworkOutput(
-            depth=tuple(cat([o.depth[b] for o in outs])
-                        for b in range(len(branches))),
-            flow=tuple(cat([o.flow[b] for o in outs])
-                       for b in range(len(branches))),
-            junction_stage=cat([o.junction_stage for o in outs]),
-            iterations=cat([o.iterations for o in outs]),
-            error=cat([o.error for o in outs]),
-            converged=cat([o.converged for o in outs]),
-            reservoir_stage=cat([o.reservoir_stage for o in outs]),
-            gate_open=cat([o.gate_open for o in outs]),
-            junction_outflow=cat([o.junction_outflow for o in outs]))
 
     def run(parts):
         brs = [dataclasses.replace(br, **p)

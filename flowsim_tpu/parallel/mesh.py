@@ -8,8 +8,10 @@ flowsim_tpu scales on two axes:
 * ``space``    — the channel-node axis for long reaches: shard_map domain
   decomposition with halo exchange (see parallel/domain.py).
 
-Collectives ride ICI within a slice; the mesh axes are declared here once so
-all modules agree on names.
+The mesh is topology-free: on a GPU host every card reaches every other at
+the same rate (NVLink, all to all), and XLA hands the collectives to NCCL, so
+the mesh shape follows the algorithm alone.  The axes are declared here once
+so all modules agree on names.
 """
 
 from __future__ import annotations

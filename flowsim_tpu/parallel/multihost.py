@@ -1,27 +1,27 @@
 """Multi-host (multi-process) distributed runtime.
 
 The reference is single-process NumPy with no communication backend at all
-(SURVEY.md §2.17); flowsim_tpu's scale-out design is "JAX collectives over
-ICI within a slice and DCN across hosts" (SURVEY.md §2.17 backend row).  This
-module provides the multi-host half:
+(SURVEY.md §2.17); flowsim_tpu scales out with JAX collectives: within a GPU
+host the cards are joined all to all (NVLink), across hosts by the network.
+This module provides the multi-host half:
 
-* :func:`initialize` — ``jax.distributed`` wiring.  On a real TPU pod slice
-  all arguments auto-detect from the environment; for simulated multi-host
-  testing, N CPU processes pass an explicit coordinator/process_id (the test
-  suite launches 2 such processes and checks equality with single-process,
-  see tests/test_multihost.py).
-* :func:`make_multihost_mesh` — DCN-aware mesh over the *global* device set:
-  devices enumerate process-major, so laying the ``space`` axis fastest keeps
-  a channel shard's halo neighbors on the same host wherever possible — only
-  the shard pairs straddling a host boundary ride DCN, and the SPIKE reduced
-  all-gather is the single unavoidable cross-host collective per Newton
-  iteration.
+* :func:`initialize` — ``jax.distributed`` wiring.  Pass the coordinator
+  address (host:port), ``num_processes`` and ``process_id`` explicitly
+  (nothing auto-detects a cluster); the test suite launches 2 CPU processes
+  this way and checks equality with single-process, see
+  tests/test_multihost.py.
+* :func:`make_multihost_mesh` — mesh over the *global* device set: devices
+  enumerate process-major, so laying the ``space`` axis fastest keeps a
+  channel shard's halo neighbors on the same host wherever possible — only
+  the shard pairs straddling a host boundary cross the network, and the
+  SPIKE reduced all-gather is the single unavoidable cross-host collective
+  per Newton iteration.
 * :func:`replicate_to_host` — gather a (possibly non-addressable) global
   array pytree into ordinary host NumPy on every process.
 
 All collectives in parallel/domain.py (`ppermute` halos, `all_gather` reduced
 system, `psum` norms) are standard XLA collectives, which the runtime routes
-over ICI or DCN transparently once the global mesh spans hosts.
+over NVLink or the network transparently once the global mesh spans hosts.
 """
 
 from __future__ import annotations
@@ -43,9 +43,9 @@ def initialize(coordinator_address: Optional[str] = None,
                local_device_ids=None) -> None:
     """Join the distributed runtime (idempotent).
 
-    On TPU pods, call with no arguments — everything auto-detects.  For
-    simulated multi-host on CPU, pass ``coordinator_address`` (host:port),
-    ``num_processes`` and ``process_id`` explicitly.
+    Pass ``coordinator_address`` (host:port), ``num_processes`` and
+    ``process_id`` explicitly; without a cluster environment
+    ``jax.distributed.initialize()`` cannot find them itself.
     """
     global _initialized_here
     if is_initialized():
@@ -72,7 +72,7 @@ def is_initialized() -> bool:
         # MUST NOT touch jax.process_count() here: it initializes the
         # backends, which both breaks a subsequent
         # jax.distributed.initialize() ('must be called before any JAX
-        # computations') and, on a pod, would bring the backend up
+        # computations') and, on a cluster, would bring the backend up
         # single-host.  Fall back to our own bookkeeping.
         return _initialized_here
 
@@ -83,9 +83,9 @@ def make_multihost_mesh(n_ensemble: Optional[int] = None,
 
     Global devices are ordered process-major, so with the space axis varying
     fastest a block of consecutive space shards lives on one host: halo
-    ``ppermute`` traffic is intra-host (ICI) except at host boundaries.  When
+    ``ppermute`` traffic stays within a host except at host boundaries.  When
     ``n_ensemble >= process_count`` each host holds whole ensemble members
-    and the space axis never crosses DCN at all.
+    and the space axis never crosses hosts at all.
     """
     from flowsim_tpu.parallel.mesh import make_mesh
 

@@ -74,7 +74,6 @@ def simulate_network_sharded(branches, n_junctions, settings, mesh: Mesh,
     """
     _check_supported(branches, n_junctions, settings)
     settings = prs.guard_f32_floor(settings)
-    prs.guard_tpu_thomas(settings)
     if settings.newton != "while":
         raise ValueError("simulate_network_sharded implements while-Newton")
     J = n_junctions
@@ -227,7 +226,8 @@ def simulate_network_sharded(branches, n_junctions, settings, mesh: Mesh,
                         est_l[1].reservoir_stage, axis, bc_state=est_l[1],
                         reservoir_stage_prev_us=est_l[0].reservoir_stage,
                         us_row=us_row, ds_row=ds_row, dx=lbd.dx)
-                    u = _spike_solve(L, D, Umat, b_loc, axis)
+                    u = _spike_solve(L, D, Umat, b_loc, axis,
+                                     settings.linear_solver)
                     Vs = []
                     for (jj, side) in meta["coups"]:
                         n_loc = h_loc.shape[0]
@@ -238,7 +238,8 @@ def simulate_network_sharded(branches, n_junctions, settings, mesh: Mesh,
                         else:
                             cvec = cvec.at[n_loc - 1, 1].set(
                                 jnp.where(last, -1.0, 0.0).astype(dtype))
-                        Vs.append(_spike_solve(L, D, Umat, cvec, axis))
+                        Vs.append(_spike_solve(L, D, Umat, cvec, axis,
+                                               settings.linear_solver))
                     us_l.append(u)
                     Vs_l.append(Vs)
                     stages_rows[l] = jnp.stack([rs_l_us, rs_l])

@@ -216,8 +216,12 @@ def simulate_with_checkpoints(solver, tolerance=1e-4, max_iter=100, interval=50,
 
 
 def _ocp():
-    import orbax.checkpoint as ocp
-
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as e:
+        raise ImportError("orbax-checkpoint is required for the sharded "
+                          "checkpoints; the .npz checkpoints need only "
+                          "numpy") from e
     return ocp
 
 

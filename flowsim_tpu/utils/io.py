@@ -2,29 +2,62 @@
 
 Functional equivalents of the reference's
 ``cases/gerd_roseires/custom_functions.py:100-157`` loaders, returning
-NumPy arrays / station lists for the geometry builders.
+NumPy arrays / station lists for the geometry builders.  They read with the
+standard library's ``csv`` module (no pandas on the solver's import path):
+cells parse with Python's correctly rounded ``float``, empty cells become
+NaN, blank lines are skipped and a UTF-8 byte-order mark is dropped.
 """
 
 from __future__ import annotations
 
+import csv
+
 import numpy as np
-import pandas as pd
 
 from flowsim_tpu.geometry import TrapezoidStation
 
 
+def read_rows(path: str, skip_rows=()) -> list:
+    """Non-blank CSV rows as lists of strings; ``skip_rows`` are 0-based
+    line indices dropped before parsing (e.g. a units line)."""
+    with open(path, newline="", encoding="utf-8-sig") as f:
+        return [row for i, row in enumerate(csv.reader(f))
+                if i not in skip_rows and any(c.strip() for c in row)]
+
+
+def to_float_matrix(rows) -> np.ndarray:
+    """Rows of strings -> float64 matrix; short rows pad and empty cells
+    read as NaN."""
+    width = max((len(r) for r in rows), default=0)
+    return np.array([[float(c) if c.strip() else np.nan for c in r]
+                     + [np.nan] * (width - len(r)) for r in rows],
+                    dtype=np.float64).reshape(len(rows), width)
+
+
+def _sorted_by(table: np.ndarray, names, column: str) -> np.ndarray:
+    j = list(names).index(column)
+    return table[np.argsort(table[:, j], kind="stable")]
+
+
 def import_table(path: str, header: bool = True, sort_by: str = None) -> np.ndarray:
-    """Generic CSV -> float array (ref custom_functions.py:120-126)."""
-    table = pd.read_csv(path, header=(0 if header else None)).dropna(axis=1, how="all").dropna()
+    """Generic CSV -> float array (ref custom_functions.py:120-126): drops
+    all-NaN columns, then rows holding any NaN."""
+    rows = read_rows(path)
+    names = rows.pop(0) if header else None
+    table = to_float_matrix(rows)
+    keep = ~np.isnan(table).all(axis=0)
+    table, names = table[:, keep], (None if names is None else
+                                    [n for n, k in zip(names, keep) if k])
+    table = table[~np.isnan(table).any(axis=1)]
     if sort_by is not None:
-        table = table.astype(np.float64).sort_values(by=sort_by)
-    return table.to_numpy(dtype=np.float64)
+        table = _sorted_by(table, names, sort_by)
+    return table
 
 
 def import_hydrograph(path: str, hr_to_s_conversion: bool = True) -> np.ndarray:
     """(time, flow) table, hours -> seconds (ref custom_functions.py:109-118)."""
-    table = pd.read_csv(path, skiprows=[1]).astype(np.float64).sort_values(by="time")
-    arr = table.to_numpy()
+    rows = read_rows(path, skip_rows=(1,))
+    arr = _sorted_by(to_float_matrix(rows[1:]), rows[0], "time")
     if hr_to_s_conversion:
         arr[:, 0] *= 3600.0
     return arr
@@ -32,8 +65,8 @@ def import_hydrograph(path: str, hr_to_s_conversion: bool = True) -> np.ndarray:
 
 def import_area_curve(path: str) -> np.ndarray:
     """(stage, area) curve with km^2 -> m^2 (ref custom_functions.py:100-107)."""
-    table = pd.read_csv(path, skiprows=[1]).astype(np.float64).sort_values(by="stage")
-    arr = table.to_numpy()[:, :2]
+    rows = read_rows(path, skip_rows=(1,))
+    arr = _sorted_by(to_float_matrix(rows[1:]), rows[0], "stage")[:, :2]
     arr[:, 1] *= 1e6
     return arr
 
@@ -45,9 +78,10 @@ def load_trapezoid_stations(file_path: str, n_main=None, n_fp=None, skip_files=(
     cross-section 53, ref :137-139) but returns TrapezoidStation configs for
     the struct-of-arrays geometry builder.
     """
-    table = pd.read_csv(file_path)
+    with open(file_path, newline="", encoding="utf-8-sig") as f:
+        table = list(csv.DictReader(f))
     chainages, stations = [], []
-    for _, row in table.iterrows():
+    for row in table:
         if row["file"] in skip_files:
             continue
         chainages.append(float(row["chainage"]))

@@ -31,7 +31,7 @@ def _plt():
         matplotlib.use("Agg", force=False)
         import matplotlib.pyplot as plt
         return plt
-    except ImportError as e:  # pragma: no cover
+    except ImportError as e:
         raise ImportError("matplotlib is required for flowsim_tpu.utils.plots") from e
 
 

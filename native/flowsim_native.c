@@ -1,7 +1,7 @@
 /* flowsim_tpu native runtime components.
  *
  * The reference's only native-performance pieces are SciPy's sparse LU and
- * brentq (SURVEY.md §2 preamble).  flowsim_tpu keeps the TPU compute path in
+ * brentq (SURVEY.md §2 preamble).  flowsim_tpu keeps the device compute path in
  * JAX/XLA and implements the host-runtime hot spots natively:
  *
  *  - polyline_tables: rasterize an irregular cross-section polyline into

@@ -1,26 +1,21 @@
-"""Instrumented ensemble batch-scaling investigation (VERDICT r1 weak #5).
+"""Ensemble batch scaling: throughput, synchronized Newton and output size.
 
-Round-1 measured 10,515 sims/s at batch 512 decaying to 4,740 at 16,384 and
-left it unexplained.  Candidate causes:
+A vmapped ``lax.while_loop`` runs every level until its slowest member has
+converged, so the executed iterations per level are max_B(iters) while the
+useful ones are mean_B(iters).  For each batch size and each output mode
+(``store="full"``, [B, nt, N] fields, and ``store="boundaries"``,
+[B, nt, 2]) this reports sims/s and the executed-vs-useful iteration ratio,
+which separates the algorithmic cost of synchronized Newton from memory
+effects of the stacked outputs.
 
-(a) synchronized Newton: a vmapped ``lax.while_loop`` executes until the
-    slowest member converges — executed work per level is max_B(iters),
-    useful work is mean_B(iters); if the max/mean ratio grows with batch the
-    decay is algorithmic, not hardware;
-(b) memory/layout effects at [B, nt, N] output sizes;
-(c) measurement artifacts (result caching on identical inputs).
-
-This script times each batch with PERTURBED inputs per rep (defeats the
-remote result cache) and reports the executed-vs-useful iteration ratio so
-(a) can be separated from (b).
-
-Usage: python scripts/bench_ensemble_decay.py
+Workload: a 256-node long-reach roughness ensemble, 24 levels, f64.
+Usage: python scripts/bench_ensemble_decay.py [batch ...]
 """
 
+import dataclasses
 import json
 import os
 import sys
-import time
 
 import numpy as np
 
@@ -33,61 +28,40 @@ def log(*a):
 
 def main():
     import jax
-    import jax.numpy as jnp
 
-    from flowsim_tpu.ops import preissmann as prs
-    from flowsim_tpu.parallel.ensemble import roughness_ensemble
-    from scripts.bench_scaling import build_long_reach, sync
+    jax.config.update("jax_enable_x64", True)
+    from flowsim_tpu.models import long_reach
+    from flowsim_tpu.parallel.ensemble import batched_simulate, roughness_ensemble
+    from flowsim_tpu.utils.profiling import timed
 
+    batches = [int(a) for a in sys.argv[1:]] or [512, 2048, 8192, 16384]
     cpu = jax.devices("cpu")[0]
     with jax.default_device(cpu):
-        geo, us, ds, h0, Q0, sset = build_long_reach(256, np.float32, levels=24)
+        geo, us, ds, h0, Q0, sset = long_reach.build(256, levels=24)
     dev = jax.devices()[0]
-    log(f"device: {dev.platform}")
-    t0 = time.time()
-    assert float(jnp.sum(jnp.ones(8))) == 8.0
-    log(f"probe ok in {time.time()-t0:.1f}s")
-
-    us_d, ds_d, h0_d, Q0_d = jax.device_put((us, ds, h0, Q0), dev)
-    f = jax.jit(jax.vmap(lambda g: prs.simulate(g, us_d, ds_d, h0_d, Q0_d, sset)))
+    log(f"device: {dev.platform} {dev.device_kind}")
 
     results = {}
-    for batch in [512, 2048, 8192, 16384]:
-        n_vals = np.linspace(0.02, 0.06, batch).astype(np.float32)
+    for batch in batches:
         with jax.default_device(cpu):
-            geo_b = roughness_ensemble(geo, n_vals)
+            geo_b = roughness_ensemble(geo, np.linspace(0.02, 0.06, batch))
         geo_b = jax.device_put(geo_b, dev)
-
-        out = f(geo_b)
-        sync(out.depth)
-        best = np.inf
-        for rep in range(3):
-            import dataclasses
-
-            gb = dataclasses.replace(
-                geo_b, n_main=geo_b.n_main * (1.0 + 1e-6 * (rep + 1))
-            )
-            t0 = time.time()
-            out = f(gb)
-            sync(out.depth)
-            best = min(best, time.time() - t0)
-
-        iters = np.asarray(out.iterations)  # [B, nt]
-        executed = int(iters.max(axis=0).sum())   # synchronized trip counts
-        useful_mean = float(iters.sum(axis=0).mean(axis=0).sum() / batch) \
-            if iters.ndim == 2 else float(iters.mean())
-        useful_mean = float(iters.sum() / batch)
-        sims_per_s = batch / best
-        results[batch] = dict(
-            wall_s=best, sims_per_s=sims_per_s,
-            iters_executed=executed, iters_useful_mean=useful_mean,
-            sync_overhead=executed / max(useful_mean, 1e-9),
-            node_iters_per_s=batch * 256 * useful_mean / best,
-        )
-        log(f"batch={batch}: {best:.3f}s -> {sims_per_s:.0f} sims/s; "
-            f"executed iters {executed} vs mean useful {useful_mean:.1f} "
-            f"(sync ratio {executed/max(useful_mean,1e-9):.2f})")
-    print(json.dumps(results))
+        for store in ("full", "boundaries"):
+            s = dataclasses.replace(sset, store=store)
+            run = lambda: batched_simulate(geo_b, us, ds, h0, Q0, s, shard=False)
+            jax.block_until_ready(run())
+            wall, _, out = timed(run, reps=3)
+            iters = np.asarray(out.iterations)  # [B, nt]
+            executed = int(iters.max(axis=0).sum())
+            useful = float(iters.sum() / batch)
+            results[f"{batch}/{store}"] = dict(
+                wall_s=wall, sims_per_s=batch / wall, iters_executed=executed,
+                iters_useful_mean=useful, sync_ratio=executed / max(useful, 1e-9))
+            log(f"batch={batch} store={store}: {wall:.4f}s -> "
+                f"{batch / wall:.0f} sims/s; executed iters {executed} vs mean "
+                f"useful {useful:.1f}")
+    print(json.dumps(dict(platform=dev.platform, device_kind=dev.device_kind,
+                          results=results)))
 
 
 if __name__ == "__main__":

@@ -1,11 +1,9 @@
-"""Year-long hourly simulation in ONE fused kernel dispatch.
+"""Year-long hourly simulation of the flagship reach on the default device.
 
-With HBM-streamed outputs (settings.out_memory="hbm"/auto) the fused
-whole-simulation kernel has no nt ceiling: this runs a full year of hourly
-levels (nt=8761) of the flagship reach — 22.8x the reference case's
-duration, whose [nt, ...] output stacks (8761 x 640 lanes) could never fit
-VMEM — in a single dispatch, and cross-checks convergence and fields
-against the CPU f64 XLA path.
+A full year of hourly levels (nt=8761) of the flagship reach — 22.8x the
+reference case's duration — through the default XLA path, cross-checked
+for convergence, iteration counts and fields against the CPU float64
+block-Thomas run in the same process.
 
 Forcing: the 384 h GERD release hydrograph repeated with a +-10% seasonal
 modulation (a synthetic wet/dry cycle) so every level has realistic
@@ -37,15 +35,12 @@ def main():
 
     from flowsim_tpu.models.gerd_roseires import model, settings as gsettings
     from flowsim_tpu.ops import preissmann as prs
-    from flowsim_tpu.ops.pallas.fused_newton import (_pick_out_mem,
-                                                     fused_simulate)
+    from flowsim_tpu.utils.profiling import timed
 
     hours = int(sys.argv[1]) if len(sys.argv) > 1 else 8760
 
     dev = jax.devices()[0]
-    log(f"device: {dev.platform}")
-    assert float(jnp.sum(jnp.ones(8))) == 8.0
-
+    log(f"device: {dev.platform} {dev.device_kind}")
     cpu = jax.devices("cpu")[0]
     with jax.default_device(cpu):
         solver, channel = model.build()
@@ -56,47 +51,36 @@ def main():
         # seasonal modulation; same downstream rating params
         ts0 = np.asarray(solver.us_params.target_series)
         nt = hours + 1
-        reps = -(-nt // len(ts0))
-        tiled = np.tile(ts0, reps)[:nt]
+        tiled = np.tile(ts0, -(-nt // len(ts0)))[:nt]
         season = 1.0 + 0.1 * np.sin(2 * np.pi * np.arange(nt) / nt)
         us = dataclasses.replace(solver.us_params,
                                  target_series=jnp.asarray(tiled * season))
         sset = dataclasses.replace(base, n_time_levels=nt)
-        Np = 128
-        log(f"nt={nt}  out_mem={_pick_out_mem(sset, nt, Np, 'full')}")
+        args = (geo, us, solver.ds_params, solver.h0, solver.Q0)
 
-        t0 = time.time()
-        ref = prs.simulate(geo, us, solver.ds_params, solver.h0, solver.Q0,
-                           sset)
+        t0 = time.perf_counter()
+        ref = prs.simulate(*args, dataclasses.replace(sset, linear_solver="thomas"))
         ref_iters = int(np.asarray(ref.iterations).sum())
-        log(f"CPU f64 XLA: {time.time()-t0:.1f}s  iters={ref_iters}")
+        log(f"CPU f64 thomas: {time.perf_counter()-t0:.1f}s  iters={ref_iters}")
 
-    t0 = time.time()
-    out = fused_simulate(geo, us, solver.ds_params, solver.h0, solver.Q0,
-                         sset)
-    float(jnp.sum(out.depth))
-    log(f"fused compile+first: {time.time()-t0:.1f}s")
-    best = np.inf
-    h0np = np.asarray(solver.h0)
-    for rep in range(2):
-        h0p = jnp.asarray(h0np * (1.0 + 1e-12 * (rep + 1)))
-        t0 = time.time()
-        out = fused_simulate(geo, us, solver.ds_params, h0p, solver.Q0, sset)
-        float(jnp.sum(out.depth))
-        best = min(best, time.time() - t0)
+    args = jax.device_put(args, dev)
+    t0 = time.perf_counter()
+    jax.block_until_ready(prs.simulate(*args, sset))
+    log(f"compile+first: {time.perf_counter()-t0:.1f}s ({sset.linear_solver})")
+    wall, _, out = timed(lambda: prs.simulate(*args, sset), reps=2)
 
     iters = int(np.asarray(out.iterations).sum())
     conv = bool(np.asarray(out.converged).all())
     dd = float(np.abs(np.asarray(out.depth) - np.asarray(ref.depth)).max())
     it_ident = bool((np.asarray(out.iterations)
                      == np.asarray(ref.iterations)).all())
-    log(f"fused: {best:.2f}s  iters={iters}  identical={it_ident} "
+    log(f"steady: {wall:.2f}s  iters={iters}  identical={it_ident} "
         f"conv={conv}  max|dh|={dd:.2e} m")
     print(json.dumps({
-        "levels": nt, "wall_s": round(best, 3), "newton_iters": iters,
-        "iters_identical_to_f64": it_ident, "converged": conv,
-        "max_dh_m": dd,
-        "newton_node_updates_per_s": round(121 * iters / best, 0),
+        "platform": dev.platform, "device_kind": dev.device_kind,
+        "levels": nt, "wall_s": wall, "newton_iters": iters,
+        "iters_identical_to_cpu": it_ident, "converged": conv,
+        "max_dh_m": dd, "newton_node_updates_per_s": 121 * iters / wall,
     }))
 
 

@@ -1,13 +1,12 @@
-"""BASELINE north-star measurement: 10^4-scenario Monte-Carlo on one chip.
+"""10^4-scenario Monte-Carlo of the flagship on one device.
 
 Runs a 10,240-member roughness x inflow ensemble of the FULL flagship
-gerd_roseires configuration (N=121 nodes, 385 hourly levels, tol 1e-6
-semantics) through the batched fused kernel, chunked at the VMEM member
-cap (HBM-streamed outputs).  Reports ensemble sims/s and the wall for the
-whole 10^4 study; the reference runs ONE such simulation in ~569 s, so a
-10^4-member study would take ~66 days serial CPU.
+gerd_roseires configuration (N=121 nodes, 385 hourly levels, tol 1e-6)
+through ``batched_simulate`` (vmap over members, ``chunk_size`` members per
+vmapped chunk).  Reports ensemble sims/s and the wall for the whole study;
+the reference NumPy solver runs ONE such simulation in ~569 s on a CPU.
 
-Usage: python scripts/bench_montecarlo.py [n_members] [store]
+Usage: python scripts/bench_montecarlo.py [n_members] [store] [chunk]
   store: "boundaries" (default; hydrograph outputs per member) or "full"
 """
 
@@ -30,82 +29,58 @@ def main():
     import jax
 
     jax.config.update("jax_enable_x64", True)
-    import jax.numpy as jnp
-
     from flowsim_tpu.models.gerd_roseires import model, settings as gsettings
-    from flowsim_tpu.ops.pallas.fused_newton import (fused_simulate_batched,
-                                                     max_fused_batch)
-    from flowsim_tpu.parallel.ensemble import roughness_ensemble
+    from flowsim_tpu.parallel.ensemble import (batch_boundaries, batched_simulate,
+                                               roughness_ensemble)
 
     B_total = int(sys.argv[1]) if len(sys.argv) > 1 else 10240
     store = sys.argv[2] if len(sys.argv) > 2 else "boundaries"
+    chunk = int(sys.argv[3]) if len(sys.argv) > 3 else 1024
 
     dev = jax.devices()[0]
-    log(f"device: {dev.platform}")
-    assert float(jnp.sum(jnp.ones(8))) == 8.0
-
-    import jax.tree_util as jtu
-
-    cpu = jax.devices("cpu")[0]
+    log(f"device: {dev.platform} {dev.device_kind}")
     rng = np.random.default_rng(42)
-    with jax.default_device(cpu):
+    with jax.default_device(jax.devices("cpu")[0]):
         solver, channel = model.build()
         sset = dataclasses.replace(
             solver.settings(tolerance=gsettings.tolerance, max_iter=100),
             store=store)
-        geo = solver.channel.geometry
-        cap = max_fused_batch(geo.n_nodes, sset.n_time_levels, store)
-        log(f"member cap/dispatch: {cap}  chunks: {-(-B_total // cap)}")
-
-        # build the WHOLE ensemble once (vectorized), slice per chunk —
-        # per-chunk python member construction would dominate the wall
-        n_draws = rng.uniform(0.025, 0.045, B_total)
-        q_scale = rng.uniform(0.8, 1.2, B_total)
+        t0 = time.perf_counter()
+        geo_b = roughness_ensemble(channel.geometry,
+                                   rng.uniform(0.035, 0.048, B_total))
         ts0 = np.asarray(solver.us_params.target_series)
-        t0 = time.time()
-        geob_all = jtu.tree_map(np.asarray,
-                                roughness_ensemble(geo, n_draws))
-        us_all = jtu.tree_map(
-            lambda x: np.broadcast_to(np.asarray(x),
-                                      (B_total,) + np.shape(x)),
-            solver.us_params)
-        us_all = dataclasses.replace(
-            us_all, target_series=ts0[None, :] * q_scale[:, None])
-        log(f"ensemble build ({B_total} members): {time.time()-t0:.1f}s")
+        us_b, us_axes = batch_boundaries([solver.us_params])
+        us_b = dataclasses.replace(
+            jax.tree_util.tree_map(
+                lambda x: np.broadcast_to(np.asarray(x)[0], (B_total,) + np.shape(x)[1:]),
+                us_b),
+            target_series=ts0[None, :] * rng.uniform(0.8, 1.2, B_total)[:, None])
+        log(f"ensemble build ({B_total} members): {time.perf_counter()-t0:.1f}s")
 
-    done = 0
-    t_start = time.time()
-    iters_total = 0
-    conv_all = True
-    peak_q = []
-    while done < B_total:
-        B = min(cap, B_total - done)
-        sl = lambda x: x[done:done + B]
-        out = fused_simulate_batched(jtu.tree_map(sl, geob_all),
-                                     jtu.tree_map(sl, us_all),
-                                     solver.ds_params,
-                                     solver.h0, solver.Q0, sset,
-                                     us_batched=True)
-        # completion barrier + a real reduction a study would do
-        peak_q.append(np.asarray(out.flow).max(axis=1))
-        iters_total += int(np.asarray(out.iterations).sum())
-        conv_all &= bool(np.asarray(out.converged).all())
-        done += B
-        log(f"  {done}/{B_total} members  ({time.time()-t_start:.1f}s)")
-    wall = time.time() - t_start
+    def run():
+        return batched_simulate(geo_b, us_b, solver.ds_params, solver.h0,
+                                solver.Q0, sset, shard=False, us_axes=us_axes,
+                                chunk_size=min(chunk, B_total))
 
-    peak = np.concatenate([p if p.ndim == 1 else p.max(axis=-1)
-                           for p in peak_q])
-    log(f"converged={conv_all} total Newton iters={iters_total}")
+    t0 = time.perf_counter()
+    out = jax.block_until_ready(run())
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = jax.block_until_ready(run())
+    wall = time.perf_counter() - t0
+
+    conv = bool(np.asarray(out.converged).all())
+    iters = int(np.asarray(out.iterations).sum())
+    peak = np.asarray(out.flow)[..., -1].max(axis=1)
+    log(f"first call {first:.1f}s, steady {wall:.2f}s, converged={conv}, "
+        f"total Newton iters={iters}")
     log(f"downstream peak-flow quantiles [5,50,95]%: "
         f"{np.percentile(peak, [5, 50, 95]).round(1)}")
-    sims_per_s = B_total / wall
-    ref_serial_days = 569.0 * B_total / 86400.0
     print(json.dumps({
-        "members": B_total, "store": store, "wall_s": round(wall, 2),
-        "sims_per_s": round(sims_per_s, 1),
-        "newton_iters": iters_total, "converged": conv_all,
-        "ref_serial_equiv_days": round(ref_serial_days, 1),
+        "platform": dev.platform, "device_kind": dev.device_kind,
+        "members": B_total, "store": store, "chunk": chunk, "wall_s": wall,
+        "first_call_s": first, "sims_per_s": B_total / wall,
+        "newton_iters": iters, "converged": conv,
     }))
 
 

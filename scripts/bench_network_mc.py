@@ -1,18 +1,17 @@
-"""Network Monte-Carlo benchmark: batched fused kernel vs stacked-vmap.
+"""Network Monte-Carlo benchmark: vmapped stacked vs loop engines.
 
 Two workloads (SURVEY.md §2.17 DP analog; ref n_calibrate.py:58-62 is a
 serial full-resimulation sweep):
 
 * ``tributary``: the flagship GERD tributary network (3 branches, 385
   levels) with per-member inflow scaling — long-duration few-branch
-  Monte-Carlo, the fused kernel's home turf (dispatch/level-loop bound).
+  Monte-Carlo;
 * ``basin``: the dendritic basin (15 branches, 25 levels) with per-member
-  headwater inflow scaling — many-branch short-duration Monte-Carlo where
-  the stacked XLA engine is already compute-dense at large M.
+  headwater inflow scaling — many-branch short-duration Monte-Carlo.
 
-Each mode validates per-member iteration counts of the fused batched
-kernel against the stacked-vmap engine before timing, then reports
-network-sims/s for both.  Run on the TPU (default device):
+Each mode first checks a few members' per-level iteration counts against
+serial CPU float64 loop-engine runs, then reports network-sims/s for both
+engines (median of ``reps`` runs ended by ``block_until_ready``):
 
     python scripts/bench_network_mc.py [tributary|basin] [M]
 """
@@ -54,143 +53,71 @@ def _scale_us(branches, scales):
     return batch
 
 
-def _sync(x):
+def _member_branches(branches, scale):
     import jax.numpy as jnp
 
-    return float(jnp.sum(jnp.where(jnp.isfinite(x), x, 0.0)))
+    from flowsim_tpu.ops.network import _is_junction
+
+    return [dataclasses.replace(br, us=dataclasses.replace(
+                br.us, target_series=jnp.asarray(
+                    np.asarray(br.us.target_series, np.float64) * scale)))
+            if not _is_junction(br.us) and br.us.kind == "flow_hydrograph"
+            else br for br in branches]
 
 
 def run(mode="tributary", M=None, reps=3):
     import jax
 
     jax.config.update("jax_enable_x64", True)  # flagship f64 semantics
-    import jax.numpy as jnp
-
+    from flowsim_tpu.ops.network import simulate_network
     from flowsim_tpu.parallel.ensemble import batched_simulate_network
+    from flowsim_tpu.utils.profiling import timed
 
     dev = jax.devices()[0]
     log(f"device: {dev.device_kind} ({dev.platform})")
-    on_cpu = dev.platform == "cpu"
+    cpu = jax.devices("cpu")[0]
+    with jax.default_device(cpu):
+        if mode == "tributary":
+            from flowsim_tpu.models import gerd_tributary
 
-    if mode == "tributary":
-        from flowsim_tpu.models import gerd_tributary
+            branches, nj, sset, _ = gerd_tributary.build()
+            M = M or 32
+        else:
+            from flowsim_tpu.models import basin
 
-        branches, nj, sset, _ = gerd_tributary.build(
-            sim_duration=3600 * 384)
-        M = M or 32
-    else:
-        from flowsim_tpu.models import basin
-
-        levels = 3 if mode == "basin7" else 4
-        branches, nj, sset = basin.build(levels=levels, sim_hours=24)
-        M = M or 256
-    sset = dataclasses.replace(sset, linear_solver="pcr_f32",
-                               out_memory="hbm" if not on_cpu else "auto")
+            branches, nj, sset = basin.build(levels=4, sim_hours=24)
+            M = M or 256
     n_nodes = sum(int(np.asarray(br.h0).shape[0]) for br in branches)
     log(f"{mode}: B={len(branches)} J={nj} nodes={n_nodes} "
-        f"nt={sset.n_time_levels} M={M}")
-
-    rng = np.random.default_rng(0)
-    scales = 0.9 + 0.2 * rng.random(M)
-
-    from flowsim_tpu.ops.pallas.fused_network import (
-        FusedUnsupported, max_fused_network_batch)
-
-    cap = max_fused_network_batch(branches, sset)
-    log(f"fused VMEM member cap/dispatch: {cap}")
-
-    def run_fused(scales_m):
-        """Chunked at the VMEM cap (sequential dispatches)."""
-        step = max(cap, 8)  # cap < 8: one call that raises FusedUnsupported
-        outs = []
-        for lo in range(0, len(scales_m), step):
-            batch = _scale_us(branches, scales_m[lo:lo + step])
-            outs.append(batched_simulate_network(branches, nj, sset, batch,
-                                                 engine="fused"))
-        return outs
-
-    def run_stacked(scales_m):
-        batch = _scale_us(branches, scales_m)
-        return batched_simulate_network(branches, nj, sset, batch,
-                                        engine="stacked")
-
-    # --- validation: per-member parity vs serial CPU f64 loop runs -------
-    from flowsim_tpu.ops.network import _is_junction, simulate_network
+        f"nt={sset.n_time_levels} M={M} {sset.linear_solver}")
+    scales = 0.9 + 0.2 * np.random.default_rng(0).random(M)
+    batch = _scale_us(branches, scales)
+    results = dict(mode=mode, M=M, platform=dev.platform,
+                   device_kind=dev.device_kind)
+    for engine in ("stacked", "loop"):
+        sim = lambda: batched_simulate_network(branches, nj, sset, batch,
+                                               engine=engine)
+        t0 = time.perf_counter()
+        out = jax.block_until_ready(sim())
+        first = time.perf_counter() - t0
+        wall, _, _ = timed(sim, reps=reps)
+        results[engine] = dict(first_s=first, steady_s=wall, sims_per_s=M / wall)
+        log(f"{engine}: first={first:.2f}s steady={wall:.4f}s "
+            f"-> {M / wall:.1f} network-sims/s")
 
     Mv = min(M, 4)
-    try:
-        out_f = run_fused(scales[:Mv])[0]
-    except FusedUnsupported as e:
-        log(f"fused unsupported at this config ({e}); timing stacked only")
-        results = dict(mode=mode, M=M, cap=int(cap),
-                       fused=dict(error=str(e)))
-        _time_engines(results, {"stacked": run_stacked}, scales, M, reps)
-        print(json.dumps(results))
-        return
-    cpu = jax.devices("cpu")[0]
-    it_ref, Y_ref = [], []
+    same = True
     with jax.default_device(cpu):
+        ref_set = dataclasses.replace(sset, linear_solver="thomas")
         for m in range(Mv):
-            brs = []
-            for br in branches:
-                if (not _is_junction(br.us)
-                        and br.us.kind == "flow_hydrograph"):
-                    se = np.asarray(br.us.target_series, np.float64)
-                    brs.append(dataclasses.replace(
-                        br, us=dataclasses.replace(
-                            br.us,
-                            target_series=jnp.asarray(se * scales[m]))))
-                else:
-                    brs.append(br)
-            o = simulate_network(brs, nj, sset, engine="loop")
-            it_ref.append(np.asarray(o.iterations))
-            Y_ref.append(np.asarray(o.junction_stage))
-    it_f = np.asarray(out_f.iterations)[:Mv]
-    same = bool(np.array_equal(it_f, np.stack(it_ref)))
-    conv = bool(np.asarray(out_f.converged).all())
-    dY = float(np.abs(np.asarray(out_f.junction_stage)[:Mv]
-                      - np.stack(Y_ref)).max())
-    log(f"validate M={Mv} vs serial CPU f64 loop: same_iters={same} "
-        f"converged={conv} |dY|={dY:.2e}")
-
-    results = dict(mode=mode, M=M, cap=int(cap), same_iters=same,
-                   converged=conv, max_dY=dY)
-
-    # --- timing ----------------------------------------------------------
-    _time_engines(results, {"fused": run_fused, "stacked": run_stacked},
-                  scales, M, reps)
+            ref = simulate_network(_member_branches(branches, scales[m]), nj,
+                                   ref_set, engine="loop")
+            same &= bool(np.array_equal(np.asarray(out.iterations)[m],
+                                        np.asarray(ref.iterations)))
+    results["same_iters_as_serial_cpu"] = same
+    results["converged"] = bool(np.asarray(out.converged).all())
+    log(f"validate M={Mv} vs serial CPU f64 loop: same_iters={same}")
     print(json.dumps(results))
-
-
-def _time_engines(results, engines, scales, M, reps):
-    import time as _t
-
-    import numpy as _np
-
-    from flowsim_tpu.ops.pallas.fused_network import FusedUnsupported
-
-    for name, fn in engines.items():
-        try:
-            t0 = _t.time()
-            out = fn(scales)
-            _sync((out[-1] if isinstance(out, list) else out).junction_stage)
-            first = _t.time() - t0
-            best = _np.inf
-            for r in range(reps):
-                sc = scales * (1.0 + 1e-9 * (r + 1))
-                t0 = _t.time()
-                out = fn(sc)
-                _sync((out[-1] if isinstance(out, list)
-                       else out).junction_stage)
-                best = min(best, _t.time() - t0)
-            results[name] = dict(first=round(first, 3),
-                                 steady=round(best, 3),
-                                 sims_per_s=round(M / best, 1))
-            log(f"{name}: first={first:.2f}s steady={best:.3f}s "
-                f"-> {M / best:.0f} network-sims/s")
-        except FusedUnsupported as e:
-            results[name] = dict(error=str(e))
-            log(f"{name}: unsupported ({e})")
 
 
 if __name__ == "__main__":

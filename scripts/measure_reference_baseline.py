@@ -3,7 +3,7 @@
 Runs the mounted reference (read-only) in-process with the standard settings
 (N~121 nodes, 385 levels, theta=0.6, tol=1e-6) and records wall time plus the
 number of Newton iterations (counted by wrapping spsolve, called once per
-iteration; ref preissmann.py:146).  Results feed BASELINE.md and bench.py.
+iteration; ref preissmann.py:146).  Results feed bench.py.
 """
 import json
 import os

@@ -8,7 +8,7 @@ Oracles:
 
 Also covers the storage.mass_balance custom_vjp (the bisection's raw
 autodiff gradient is identically zero — a silent-wrong-gradient defect the
-IFT rule fixes) and the fused-forward value_and_grad driver.
+IFT rule fixes) and the two-phase value_and_grad driver.
 """
 
 import dataclasses
@@ -188,8 +188,8 @@ def test_transposed_solve_dense_check(rng):
     np.testing.assert_allclose(x, x_dense, rtol=1e-9, atol=1e-12)
 
 
-def test_value_and_grad_fused_interpret():
-    """Fused forward (interpret mode) + adjoint backward == implicit grad."""
+def test_value_and_grad_two_phase():
+    """Eager XLA forward + adjoint backward == implicit grad."""
     solver, sset = _akbari(tol=1e-8)
     geo = solver.channel.geometry
     sset_w = dataclasses.replace(sset, newton="while", linear_solver="pcr")
@@ -202,7 +202,7 @@ def test_value_and_grad_fused_interpret():
     g0 = set_main_roughness(geo, n0)
     v, grads, out = adjoint.simulate_value_and_grad(
         loss_fn, g0, solver.us_params, solver.ds_params,
-        solver.h0, solver.Q0, sset_w, engine="fused", interpret=True)
+        solver.h0, solver.Q0, sset_w)
     g_n = float(jnp.sum(grads[0].n_main))
 
     f = _loss_fn(solver, dataclasses.replace(sset, linear_solver="pcr",

@@ -290,8 +290,7 @@ def test_rating_curve_general_degree_fit():
 
 def test_poly_n_downstream_bc_runs():
     """A cubic rating curve as the downstream BC: the XLA solver consumes
-    the poly_n kind through the generic discharge/dQ_dz path, and the fused
-    engine falls back to XLA cleanly (FusedUnsupported)."""
+    the poly_n kind through the generic discharge/dQ_dz path."""
     import jax
     import jax.numpy as jnp
 
@@ -333,9 +332,3 @@ def test_poly_n_downstream_bc_runs():
     qN = np.asarray(out.flow)[-1, -1]
     q_rc = float(rcurve.discharge(rc, jnp.asarray(float(z[-1]) + hN)))
     np.testing.assert_allclose(qN, q_rc, rtol=1e-7)
-
-    from flowsim_tpu.ops.pallas.fused_newton import (FusedUnsupported,
-                                                     fused_simulate)
-    import pytest
-    with pytest.raises(FusedUnsupported):
-        fused_simulate(geo, us, ds, h0, Q0, sset, interpret=True)

@@ -14,6 +14,8 @@ works there implicitly; flowsim_tpu carries the two stages explicitly in
 * the Lax solver's dual-stage scan carry.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 
@@ -157,32 +159,31 @@ def test_both_ends_storage_lax_runs():
     assert y_ds[-1] > y_ds[2]
 
 
-def test_both_ends_storage_fused_kernel():
-    """Round-5: storage on BOTH boundaries runs IN the fused kernel
-    (interpret mode) with iteration counts identical to the XLA path and
-    both stage trajectories matching."""
-    from flowsim_tpu.ops.pallas.fused_newton import fused_simulate
-
-    geo, us, ds, h0, Q0 = build()
-    sset = settings(tolerance=1e-6)
-    ref = prs.simulate(geo, us, ds, h0, Q0, sset)
-    out = fused_simulate(geo, us, ds, h0, Q0, sset, interpret=True)
+def _assert_solvers_agree(geo, us, ds, h0, Q0, sset):
+    """thomas vs pcr: identical iteration counts, both stage trajectories."""
+    ref = prs.simulate(geo, us, ds, h0, Q0,
+                       dataclasses.replace(sset, linear_solver="thomas"))
+    out = prs.simulate(geo, us, ds, h0, Q0,
+                       dataclasses.replace(sset, linear_solver="pcr"))
+    assert bool(np.asarray(out.converged).all())
     np.testing.assert_array_equal(np.asarray(out.iterations),
                                   np.asarray(ref.iterations))
-    assert bool(np.asarray(out.converged).all())
-    assert np.abs(np.asarray(out.depth) - np.asarray(ref.depth)).max() < 1e-5
-    # both stage trajectories (lane-2 ds / lane-12 us are f32 sums)
+    assert np.abs(np.asarray(out.depth) - np.asarray(ref.depth)).max() < 1e-9
     assert np.abs(np.asarray(out.reservoir_stage[1:])
-                  - np.asarray(ref.reservoir_stage[1:])).max() < 1e-4
+                  - np.asarray(ref.reservoir_stage[1:])).max() < 1e-9
     assert np.abs(np.asarray(out.reservoir_stage_us[1:])
-                  - np.asarray(ref.reservoir_stage_us[1:])).max() < 1e-4
+                  - np.asarray(ref.reservoir_stage_us[1:])).max() < 1e-9
 
 
-def test_both_ends_curve_storage_fused_kernel():
-    """Both-ends with a stage-AREA-CURVE reservoir downstream (two stage
-    table sets: the shared stg input + the us stg input)."""
-    from flowsim_tpu.ops.pallas.fused_newton import fused_simulate
+def test_both_ends_storage_thomas_vs_pcr():
+    """Storage on BOTH boundaries: the two linear solvers give identical
+    iteration counts and matching stage trajectories."""
+    geo, us, ds, h0, Q0 = build()
+    _assert_solvers_agree(geo, us, ds, h0, Q0, settings(tolerance=1e-6))
 
+
+def test_both_ends_curve_storage_thomas_vs_pcr():
+    """Both-ends with stage-AREA-CURVE reservoirs at both ends."""
     geo, us, ds, h0, Q0 = build()
     bed_ds = float(np.asarray(geo.z_bed)[-1])
     y0 = bed_ds + float(np.asarray(h0)[-1])
@@ -199,15 +200,5 @@ def test_both_ends_curve_storage_fused_kernel():
         storage=stg.make_storage(
             area_curve=np.stack([stages, SA_US * (1.0 + 0.02 * (stages - y0) ** 0 )], 1),
             min_stage=bed_us - 5.0, solution_boundaries=(0.0, 100.0)))
-    sset = settings(tolerance=1e-6)
-    ref = prs.simulate(geo, us_curve, ds_curve, h0, Q0, sset)
-    out = fused_simulate(geo, us_curve, ds_curve, h0, Q0, sset,
-                         interpret=True)
-    assert bool(np.asarray(out.converged).all())
-    np.testing.assert_array_equal(np.asarray(out.iterations),
-                                  np.asarray(ref.iterations))
-    assert np.abs(np.asarray(out.depth) - np.asarray(ref.depth)).max() < 1e-5
-    assert np.abs(np.asarray(out.reservoir_stage[1:])
-                  - np.asarray(ref.reservoir_stage[1:])).max() < 1e-4
-    assert np.abs(np.asarray(out.reservoir_stage_us[1:])
-                  - np.asarray(ref.reservoir_stage_us[1:])).max() < 1e-4
+    _assert_solvers_agree(geo, us_curve, ds_curve, h0, Q0,
+                          settings(tolerance=1e-6))

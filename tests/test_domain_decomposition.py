@@ -222,7 +222,7 @@ def test_network_sharded_long_branch():
     from flowsim_tpu.ops import initial_conditions as ic
     from flowsim_tpu.ops.network import BranchDef, simulate_network
     from flowsim_tpu.parallel.network_domain import simulate_network_sharded
-    from tests.test_fused_network import _prismatic
+    from tests.helpers import prismatic as _prismatic
 
     slope, dx, dt, nt = 6e-4, 1000.0, 1800.0, 9
     main = _prismatic(n=48, slope=slope)      # split 17 + 32 (shared node)
@@ -279,7 +279,7 @@ def test_network_sharded_dam_junction():
     from flowsim_tpu.ops import rating_curve as rcurve
     from flowsim_tpu.ops.network import BranchDef, simulate_network
     from flowsim_tpu.parallel.network_domain import simulate_network_sharded
-    from tests.test_fused_network import _prismatic
+    from tests.helpers import prismatic as _prismatic
 
     slope, dx, dt, nt = 6e-4, 1000.0, 1800.0, 7
     main = _prismatic(n=40, slope=slope)
@@ -328,7 +328,7 @@ def test_network_sharded_multiple_branches():
     from flowsim_tpu.ops import initial_conditions as ic
     from flowsim_tpu.ops.network import BranchDef, simulate_network
     from flowsim_tpu.parallel.network_domain import simulate_network_sharded
-    from tests.test_fused_network import _prismatic
+    from tests.helpers import prismatic as _prismatic
 
     slope, dx, dt, nt = 6e-4, 1000.0, 1800.0, 7
     arm = _prismatic(n=32, slope=slope)

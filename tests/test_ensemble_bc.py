@@ -248,15 +248,12 @@ def test_sharded_ensemble_per_member_inflow():
 
 def test_chunked_batch_matches_monolithic():
     """chunk_size splits the batch into sequential vmapped chunks inside one
-    jit (lax.map); results must be bitwise identical to the monolithic vmap.
-    Measured rationale in parallel/ensemble.py: at batch 16384 one monolithic
-    vmap is ~22% slower per sim on v5e than 2x8192."""
-    import sys, os
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
-    from bench_scaling import build_long_reach
+    jit (lax.map); results must be bitwise identical to the monolithic vmap."""
+    from flowsim_tpu.models import long_reach
     from flowsim_tpu.parallel.ensemble import batched_simulate, roughness_ensemble
 
-    geo, us, ds, h0, Q0, sset = build_long_reach(64, np.float32, levels=4)
+    geo, us, ds, h0, Q0, sset = long_reach.build(64, levels=4, dtype=np.float32,
+                                                 linear_solver="pcr")
     n_vals = np.linspace(0.02, 0.06, 32).astype(np.float32)
     gb = roughness_ensemble(geo, n_vals)
     full = batched_simulate(gb, us, ds, h0, Q0, sset, shard=False)
@@ -273,16 +270,16 @@ def test_store_boundaries_matches_full():
     """settings.store='boundaries' keeps only the two boundary nodes of the
     stacked (h, Q) outputs — bitwise equal to the full run's boundary
     columns (same scan carry, only the stacked ys shrink), including under
-    vmap.  This is the Monte-Carlo output mode (BASELINE.md ensemble notes:
-    the 16k-batch decay is a stacked-output working-set effect)."""
+    vmap.  This is the Monte-Carlo output mode (it shrinks the stacked-output
+    working set of a large batch by N/2)."""
     import dataclasses
-    import sys, os
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
-    from bench_scaling import build_long_reach
+
+    from flowsim_tpu.models import long_reach
     from flowsim_tpu.ops import preissmann as prs
     from flowsim_tpu.parallel.ensemble import batched_simulate, roughness_ensemble
 
-    geo, us, ds, h0, Q0, sset = build_long_reach(64, np.float32, levels=4)
+    geo, us, ds, h0, Q0, sset = long_reach.build(64, levels=4, dtype=np.float32,
+                                                 linear_solver="pcr")
     sset_b = dataclasses.replace(sset, store="boundaries")
 
     full = prs.simulate(geo, us, ds, h0, Q0, sset)

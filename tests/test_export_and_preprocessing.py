@@ -102,7 +102,7 @@ def test_approximate_folder_on_reference_raw_sections(tmp_path):
     if not reference_available():
         pytest.skip("reference not mounted")
     folder = os.path.join(REFERENCE_ROOT, "cases", "gerd_roseires", "data", "raw", "cross_sections")
-    df = approximate_folder(folder, output_csv=str(tmp_path / "fits.csv"))
-    assert len(df) == 22
+    recs = approximate_folder(folder, output_csv=str(tmp_path / "fits.csv"))
+    assert len(recs) == 22
     assert os.path.exists(tmp_path / "fits.csv")
-    assert np.isfinite(df["b_main"].to_numpy(dtype=float)).sum() >= 20
+    assert np.isfinite([float(r["b_main"]) for r in recs]).sum() >= 20

@@ -114,21 +114,40 @@ def test_preissmann_like_structure(rng):
         np.testing.assert_allclose(np.asarray(x), x_ref, rtol=1e-7, atol=1e-12)
 
 
-def test_factor_apply_multi_rhs(rng):
-    from flowsim_tpu.ops.tridiag import block_thomas_factor, block_thomas_apply
-
+@pytest.mark.parametrize("method", ["thomas", "pcr"])
+def test_spike_five_column_rhs(method, rng):
+    """The SPIKE local solve: residual + two 2x2 spike blocks as one
+    5-column right-hand side (parallel/domain.py _spike_solve)."""
     L, D, U, b = random_system(rng, 40)
-    factor = block_thomas_factor(L, D, U)
-    x1 = block_thomas_apply(factor, b)
-    np.testing.assert_allclose(np.asarray(x1), dense_solution(L, D, U, b), rtol=1e-9, atol=1e-10)
-
-    B = jnp.stack([b, 2 * b, b - 1.0], axis=-1)  # [N, 2, 3]
-    X = block_thomas_apply(factor, B)
-    assert X.shape == (40, 2, 3)
-    for m in range(3):
+    EV = jnp.zeros_like(L).at[0].set(L[0])
+    EW = jnp.zeros_like(U).at[-1].set(U[-1])
+    B = jnp.concatenate([b[..., None], EV, EW], axis=-1)  # [N, 2, 5]
+    X = tridiag.solve_block_tridiag(L, D, U, B, method=method)
+    assert X.shape == (40, 2, 5)
+    for m in range(5):
         np.testing.assert_allclose(
             np.asarray(X[..., m]), dense_solution(L, D, U, B[..., m]), rtol=1e-9, atol=1e-10
         )
+
+
+def test_dense_block_thomas_reduced_system(rng):
+    """The 4x4-block Thomas of the SPIKE reduced system vs a dense solve."""
+    S, m = 6, 4
+    L = jnp.asarray(rng.normal(size=(S, m, m)) * 0.3).at[0].set(0.0)
+    U = jnp.asarray(rng.normal(size=(S, m, m)) * 0.3).at[-1].set(0.0)
+    D = jnp.asarray(rng.normal(size=(S, m, m)) + 4 * np.eye(m))
+    b = jnp.asarray(rng.normal(size=(S, m)))
+    A = np.zeros((S * m, S * m))
+    for i in range(S):
+        A[i * m:(i + 1) * m, i * m:(i + 1) * m] = D[i]
+        if i:
+            A[i * m:(i + 1) * m, (i - 1) * m:i * m] = L[i]
+        if i < S - 1:
+            A[i * m:(i + 1) * m, (i + 1) * m:(i + 2) * m] = U[i]
+    x = tridiag.dense_block_thomas(L, D, U, b)
+    np.testing.assert_allclose(np.asarray(x).reshape(-1),
+                               np.linalg.solve(A, np.asarray(b).reshape(-1)),
+                               rtol=1e-9, atol=1e-11)
 
 
 def test_pcr_f32_inexact_newton_converges():
